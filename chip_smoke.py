@@ -1,0 +1,423 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port (fhe_linformer_tpu_torch) on one NVIDIA card.
+
+    python3 chip_smoke.py            # every phase; needs one CUDA card
+
+Phases, each printing one JSON line:
+  1. card     - nvidia-smi name and power limit, torch/CUDA versions, and
+                the nvcc build of every kernel in fhe_linformer_tpu_torch/csrc
+  2. kernels  - each CUDA kernel against its plain PyTorch version on the
+                card at the main path's shapes: exact equality, median time,
+                the plain version's time, and the least time the card could
+                take (bytes over 3.35 TB/s or 32-bit multiplies over the
+                float32 FMA lane rate, whichever is larger)
+  3. keyswitch - one Galois key switch at N = 2^15, 24 limbs, dnum 3,
+                batch 4: the yardstick for later speed work
+  4. forward  - the block-major encrypted Linformer (d = 128, k_lin = 32,
+                d_ffn = 512, 20 classes, random weights of seed 3) on the
+                linformer-boot-w parameters without bootstrapping, answering
+                two requests (S = 128 and S = 200 tokens); per stage wall
+                time, key switches, kernel launches, and the decrypted
+                logits against the plaintext golden model
+  5. the `kernels` line: every kernel with its launches during phase 4
+
+It ends with {"ok": true, "device": {...}}.  Any failure raises and exits
+non-zero before that line.  There is no CPU path: the script refuses to run
+without CUDA.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory
+# 32-bit integer multiplies run on the float32 FMA lanes: 67 TFLOP/s of
+# float32 counts two flops per FMA, so at most 33.5e12 multiplies a second
+INT_MUL_PER_S = 33.5e12
+PORT = "fhe_linformer_tpu_torch"
+REFERENCE = PORT.removesuffix("_torch")      # the JAX package the port mirrors
+REPLACES = {"ntt_fwd": f"{REFERENCE}/ops/ntt_pallas.py:195",
+            "ntt_inv": f"{REFERENCE}/ops/ntt_pallas.py:199",
+            "base_convert": f"{REFERENCE}/ops/basecvt.py:81"}
+SOURCES = {"ntt_fwd": f"{PORT}/csrc/ntt.cu", "ntt_inv": f"{PORT}/csrc/ntt.cu",
+           "base_convert": f"{PORT}/csrc/basecvt.cu"}
+LOG2N = 15
+
+
+def emit(obj) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
+    """Median milliseconds of fn() over `reps` calls, each timed by CUDA
+    events around the call."""
+    import torch
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        stop.record()
+        stop.synchronize()
+        times.append(start.elapsed_time(stop))
+    return float(np.median(times))
+
+
+def bound(nbytes: float, mults: float) -> tuple[float, str]:
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = mults / INT_MUL_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def random_residues(shape, qs, gen, device):
+    """Uniform residues below each limb's prime on the limb axis (-2)."""
+    import torch
+    q = torch.tensor(qs, dtype=torch.int64, device=device).view(-1, 1)
+    x = torch.randint(0, 1 << 62, shape, generator=gen, device=device)
+    return (x % q).int()
+
+
+# ---------------------------------------------------------------------------
+# phase 1
+
+
+def phase_card():
+    import torch
+    from fhe_linformer_tpu_torch.ops import cuda_build
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, check=True)
+    card = smi.stdout.strip().splitlines()[0]
+    print(card, flush=True)
+    t0 = time.perf_counter()
+    report = cuda_build.build()
+    emit({"phase": "card", "nvidia_smi": card,
+          "torch": torch.__version__, "cuda": torch.version.cuda,
+          "device": torch.cuda.get_device_name(0),
+          "build_s": time.perf_counter() - t0,
+          "build": {k: {"seconds": v["seconds"],
+                        "ptxas": [ln for ln in v["ptxas"].splitlines()
+                                  if "registers" in ln or "spill" in ln]}
+                    for k, v in report.items()}})
+
+
+# ---------------------------------------------------------------------------
+# phase 2
+
+
+def _ntt_case(tables, B, L, gen, reps):
+    import torch
+    from fhe_linformer_tpu_torch.ops import ntt, ntt_cuda
+    n = tables.n
+    limbs = tuple(range(L))
+    x = random_residues((B, L, n), tables.qs[:L], gen, "cuda")
+    out = {}
+    for name, kern, plain in (("ntt_fwd", ntt_cuda.fwd, ntt.fwd_plain),
+                              ("ntt_inv", ntt_cuda.inv, ntt.inv_plain)):
+        got = kern(x, tables, limbs)
+        want = plain(x, tables, limbs)
+        torch.cuda.synchronize()
+        err = int((got.long() - want.long()).abs().max())
+        if err != 0:
+            raise AssertionError(f"{name} differs from its plain version at "
+                                 f"{(B, L, n)}: max |diff| {err}")
+        rows = B * L
+        mults = rows * (n // 2) * (n.bit_length() - 1) * 3 + \
+            (rows * n * 3 if name == "ntt_inv" else 0)
+        nbytes = rows * n * 8 + L * n * 8
+        b_ms, b_by = bound(nbytes, mults)
+        out[name] = {"shape": [B, L, n], "max_abs_err": err,
+                     "ms": cuda_ms(lambda: kern(x, tables, limbs), reps),
+                     "plain_ms": cuda_ms(lambda: plain(x, tables, limbs), 3, 1),
+                     "bound_ms": b_ms, "bound_by": b_by}
+    return out
+
+
+def _bc_case(bc, g_valid, B, prefolded, gen, reps):
+    import torch
+    from fhe_linformer_tpu_torch.ops import basecvt
+    n = 1 << LOG2N
+    qs = bc.gq[:g_valid].long().cpu().tolist()
+    x = random_residues((B, g_valid, n), qs, gen, "cuda")
+    got = basecvt.base_convert_cuda(x, bc, prefolded)
+    want = basecvt.base_convert_plain(x, bc, prefolded)
+    torch.cuda.synchronize()
+    err = int((got.long() - want.long()).abs().max())
+    if err != 0:
+        raise AssertionError(f"base_convert differs from its plain version "
+                             f"at B={B}, g={g_valid}, nd={bc.nd}: {err}")
+    tgt = bc.q_out.shape[0]
+    mults = B * n * ((0 if prefolded else 3 * g_valid) + 2 * g_valid * tgt)
+    nbytes = 4 * B * n * (g_valid + bc.nd * tgt)
+    b_ms, b_by = bound(nbytes, mults)
+    return {"B": B, "G": bc.nd * bc.alpha, "g_valid": g_valid, "nd": bc.nd,
+            "tgt": tgt, "prefolded": prefolded, "max_abs_err": err,
+            "ms": cuda_ms(lambda: basecvt.base_convert_cuda(x, bc, prefolded),
+                          reps),
+            "plain_ms": cuda_ms(
+                lambda: basecvt.base_convert_plain(x, bc, prefolded), 3, 1),
+            "bound_ms": b_ms, "bound_by": b_by}
+
+
+def phase_kernels(ctx):
+    """Each kernel against its plain version on the card.  Returns the
+    main-shape numbers per kernel for the final `kernels` line."""
+    import torch
+    from fhe_linformer_tpu_torch.ops.ntt import NttTables
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(1)
+    L = ctx.num_q + ctx.k_sp                       # 79: the key switch's basis
+    main = _ntt_case(ctx.ntt, 4, L, gen, reps=30)
+    small = _ntt_case(NttTables(1 << 11, ctx.basis[:L], "cuda"), 4, L, gen,
+                      reps=30)
+    nl = ctx.num_q
+    ks = ctx.ks_tables(nl)
+    bc_rows = [_bc_case(ks.bc, nl, 4, False, gen, reps=30),
+               _bc_case(ks.bc, nl, 32, False, gen, reps=20),
+               _bc_case(ks.md, ctx.k_sp, 4, True, gen, reps=30)]
+    emit({"phase": "kernels", "ntt_2^15": main, "ntt_2^11": small,
+          "base_convert": bc_rows})
+    return {"ntt_fwd": main["ntt_fwd"], "ntt_inv": main["ntt_inv"],
+            "base_convert": bc_rows[0]}
+
+
+# ---------------------------------------------------------------------------
+# phase 3
+
+
+def phase_keyswitch():
+    from fhe_linformer_tpu_torch.ckks import evaluator as evm
+    from fhe_linformer_tpu_torch.ckks.context import CKKSConfig, Context
+    from fhe_linformer_tpu_torch.ckks.evaluator import Evaluator
+    from fhe_linformer_tpu_torch.ckks.keys import generate_keys
+    cfg = CKKSConfig(n=1 << LOG2N, scale_bits=26, num_scaling=23, dnum=3)
+    ctx = Context(cfg)
+    keys = generate_keys(ctx, rotations=(1,))
+    ev = Evaluator(ctx, keys)
+    z = np.random.default_rng(0).uniform(-1, 1, (4, cfg.slots))
+    ct = ev.encrypt(z, batch=True)
+    ks = ctx.ks_tables(ct.nl)
+    perm = ctx.galois_perm(ctx.galois_t(1))
+    ms = cuda_ms(lambda: evm._galois_core(ctx, ct.c0, ct.c1, perm,
+                                          keys.rot[1], ks), reps=20)
+    # a fresh encryption already decrypts with ~7e-3 max slot error here
+    # (dense ternary secret, scale 2^26); the switch may add little to it
+    fresh = float(np.abs(np.real(ev.decrypt(ct)) - z).max())
+    got = np.real(ev.decrypt(ev.rotate(ct, 1)))
+    err = float(np.abs(got - np.roll(z, -1, axis=-1)).max())
+    if not err < 2 * fresh:
+        raise AssertionError(f"rotation by 1 decrypts with error {err}, "
+                             f"a fresh encryption with {fresh}")
+    emit({"phase": "keyswitch", "n": cfg.n, "limbs": ct.nl, "dnum": cfg.dnum,
+          "batch": 4, "ms": ms, "keyswitches_per_s": 4 / ms * 1e3,
+          "fresh_decrypt_err": fresh, "rotate_decrypt_err": err})
+
+
+# ---------------------------------------------------------------------------
+# phase 4
+
+
+def _rotations(slots: int, d: int = 128, bs: int = 16) -> tuple[int, ...]:
+    """The packed circuit's rotation keys without the bootstrap's: +/-2^i
+    for the rotate-accumulate trees and the BSGS shifts of a d x d block
+    matmul (its main diagonals u and wrap diagonals u - d)."""
+    from fhe_linformer_tpu_torch.linalg.packed import PackedOps
+    rots, s = set(), 1
+    while s < slots:
+        rots |= {s, -s}
+        s *= 2
+    offsets = list(range(d)) + [(u - d) % slots for u in range(1, d)]
+    for r in PackedOps.bsgs_required_rotations(offsets, bs, slots):
+        rots.add(r if r < slots // 2 else r - slots)
+    return tuple(sorted(rots))
+
+
+def _calibrated(golden, w, embs):
+    """bench_layer.py's CircuitParams rule (degree 27, exp_pow8=False),
+    taken over every request's golden intermediates."""
+    from fhe_linformer_tpu_torch.models.circuit import CircuitParams
+    inters = [golden.forward(w, e, return_intermediates=True)[1] for e in embs]
+    rowsums = np.concatenate([i["exp"].sum(-1) for i in inters])
+    h = max(np.abs(i["norm1"] @ w.W1.T + w.B1[None]).max() for i in inters)
+    p = max(np.abs(i["norm2"][:1] @ w.Wp.T + w.bp[None]).max() for i in inters)
+    return CircuitParams(inv_range=(0.5 * rowsums.min(), 1.5 * rowsums.max()),
+                         inv_degree=27, gelu_degree=27, tanh_degree=27,
+                         gelu_clip=1.0 / (1.2 * h), tanh_scale=1.0 / (1.2 * p),
+                         exp_pow8=False), inters
+
+
+def _device_breakdown(run):
+    """One traced call of run() under torch.profiler: device time per
+    kernel of the port, the other kernels' time (the plain torch ops), and
+    the share of the wall time the device sat idle."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t) * 1e3
+    ours = {k: {"ms": 0.0, "count": 0}
+            for k in ("ntt_fwd", "ntt_inv", "base_convert")}
+    other: dict = {}
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        ms = e.time_range.elapsed_us() / 1e3
+        key = next((k for k in ours if f"{k}_kernel" in e.name), None)
+        row = ours[key] if key else other.setdefault(
+            e.name[:100], {"ms": 0.0, "count": 0})
+        row["ms"] += ms
+        row["count"] += 1
+    busy = sum(r["ms"] for r in ours.values()) + \
+        sum(r["ms"] for r in other.values())
+    top = sorted(other.items(), key=lambda kv: -kv[1]["ms"])[:10]
+    return {"traced_wall_ms": wall_ms, "device_busy_ms": busy,
+            "device_idle_share": 1.0 - busy / wall_ms if wall_ms else None,
+            "port_kernels": ours,
+            "other_kernels_ms": sum(r["ms"] for r in other.values()),
+            "other_kernel_launches": sum(r["count"] for r in other.values()),
+            "top_other": [{"name": k, **v} for k, v in top]}
+
+
+def phase_forward():
+    """Answers each request twice (caches cold, then warm) and checks the
+    logits; returns the kernel launch counts of those answers."""
+    import torch
+    from fhe_linformer_tpu_torch.ckks.context import Context
+    from fhe_linformer_tpu_torch.ckks.evaluator import Evaluator
+    from fhe_linformer_tpu_torch.ckks.keys import generate_keys
+    from fhe_linformer_tpu_torch.config import get
+    from fhe_linformer_tpu_torch.models import golden
+    from fhe_linformer_tpu_torch.models.circuit_packed import PackedLinformer
+    from fhe_linformer_tpu_torch.utils.timing import (GLOBAL_TIMERS,
+                                                      KERNEL_LAUNCHES,
+                                                      reset_launches)
+    t0 = time.perf_counter()
+    ctx = Context(get("linformer-boot-w").ckks)
+    rots = _rotations(ctx.cfg.slots)
+    keys = generate_keys(ctx, rotations=rots)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    ev = Evaluator(ctx, keys)
+    sizes = (128, 200)
+    w = golden.random_weights(d=128, k_lin=32, d_ffn=512, n_classes=20,
+                              max_seq=max(sizes) + 4, seed=3, scale=0.3)
+    rng = np.random.default_rng(0)
+    embs = [rng.normal(0, 0.3, (S - 1, 128)) for S in sizes]
+    params, inters = _calibrated(golden, w, embs)
+    circ = PackedLinformer(ev, w, params, bs=16)
+    emit({"phase": "forward_setup", "basis": len(ctx.basis),
+          "rotation_keys": len(rots), "keygen_s": setup_s,
+          "memory_allocated_gb": torch.cuda.memory_allocated() / 2 ** 30})
+
+    def stage(log, name, fn, *args):
+        c0 = dict(GLOBAL_TIMERS.counts)
+        t = time.perf_counter()
+        out = fn(*args)
+        torch.cuda.synchronize()
+        log[name] = {
+            "s": time.perf_counter() - t,
+            **{k: GLOBAL_TIMERS.counts[k] - c0.get(k, 0)
+               for k in ("keyswitch", "combo_rot", "bootstrap")},
+            "out_nl": out.nl}
+        return out
+
+    def affine2(a, y, S_total):
+        am, ym = ev.match(a, y)
+        return circ.affine(ev.add(am, ym), w.a2, w.b2, w.c2, S_total)
+
+    def answer(emb, log):
+        t = time.perf_counter()
+        x, xe, xf, S_total = circ.encrypt_inputs(emb)
+        torch.cuda.synchronize()
+        log["encrypt"] = {"s": time.perf_counter() - t, "in_nl": x.nl}
+        a = stage(log, "attention", circ.attention, x, xe, xf, S_total)
+        a = stage(log, "affine1", circ.affine, a, w.a1, w.b1, w.c1, S_total)
+        y = stage(log, "ffn_gelu", circ.ffn, a)
+        r = stage(log, "affine2", affine2, a, y, S_total)
+        out = stage(log, "pooler_classifier", circ.pooler_classifier, r)
+        t = time.perf_counter()
+        logits = circ.decrypt_logits(out)
+        log["decrypt"] = {"s": time.perf_counter() - t}
+        return logits, int(x.c0.shape[0])
+
+    reset_launches()
+    for rep, caches in enumerate(("cold", "warm")):
+        for S, emb, inter in zip(sizes, embs, inters):
+            torch.cuda.reset_peak_memory_stats()
+            before = dict(KERNEL_LAUNCHES)
+            log: dict = {}
+            logits, chunks = answer(emb, log)
+            want = inter["logits"]
+            err = float(np.max(np.abs(logits - want)))
+            emit({"phase": "forward", "S": S, "chunks": chunks,
+                  "plaintext_caches": caches,
+                  "request_s": sum(v["s"] for v in log.values()),
+                  "stages": log,
+                  "kernel_launches": {k: KERNEL_LAUNCHES[k] - before[k]
+                                      for k in KERNEL_LAUNCHES},
+                  "argmax": int(np.argmax(logits)),
+                  "golden_argmax": int(np.argmax(want)),
+                  "max_abs_logit_err": err,
+                  "max_memory_allocated_gb":
+                      torch.cuda.max_memory_allocated() / 2 ** 30})
+            if not np.all(np.isfinite(logits)) or \
+                    np.argmax(logits) != np.argmax(want) or not err <= 0.05:
+                raise AssertionError(f"S={S}: logits {logits} vs golden "
+                                     f"{want} (max err {err})")
+    launches = dict(KERNEL_LAUNCHES)
+    emit({"phase": "forward_trace", "S": sizes[0], "plaintext_caches": "warm",
+          **_device_breakdown(lambda: answer(embs[0], {}))})
+    return launches
+
+
+# ---------------------------------------------------------------------------
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke.py needs a CUDA card (torch.cuda.is_available() "
+              "is False)", file=sys.stderr)
+        return 2
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from fhe_linformer_tpu_torch.ckks.context import Context
+    from fhe_linformer_tpu_torch.config import get
+    torch.manual_seed(0)
+    phase_card()
+    main_shapes = phase_kernels(Context(get("linformer-boot-w").ckks))
+    phase_keyswitch()
+    launches = phase_forward()
+    missing = [k for k, v in launches.items() if v <= 0]
+    if missing:
+        raise AssertionError(f"kernels never launched on the main path: "
+                             f"{missing}")
+    emit({"kernels": [
+        {"name": k, "route": "cuda", "source": SOURCES[k],
+         "replaces": REPLACES[k], "launches": launches[k],
+         "max_abs_err": main_shapes[k]["max_abs_err"],
+         "ms": main_shapes[k]["ms"], "plain_ms": main_shapes[k]["plain_ms"],
+         "bound_ms": main_shapes[k]["bound_ms"],
+         "bound_by": main_shapes[k]["bound_by"], "library_ms": None}
+        for k in ("ntt_fwd", "ntt_inv", "base_convert")]})
+    emit({"ok": True, "device": {"platform": "gpu",
+                                 "kind": torch.cuda.get_device_name(0),
+                                 "count": torch.cuda.device_count()}})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,749 @@
+"""Homomorphic evaluation: encode/encrypt/decrypt, arithmetic, rescale,
+rotations and the hybrid key switch, on one device.
+
+The subset of the JAX package's `ckks/evaluator.py` that the block-major
+Linformer forward reaches, computing what its jitted cores compute (each
+returns canonical residues, so results are bit-identical given the same
+inputs).  Running scale lives on the host wrapper.  Heavy ops process at
+most HEAVY_CHUNK ciphertexts at a time to bound the key switch's
+intermediates (~12x the ciphertext volume).
+
+Every key switch funnels through `_keyswitch_many`: inverse NTT of the
+input (kernel K2), digit decomposition by fused base conversion (K3) and
+forward NTT of the digit rows (K1), key inner products, then the mod-down
+(K2, K3 prefolded, K1).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..ops import ntt
+from ..ops.basecvt import base_convert
+from ..ops.modarith import addmod, mulmod, submod
+from ..ops.ntt import NttTables
+from ..utils.timing import GLOBAL_TIMERS as _COUNTS
+from .ciphertext import Ciphertext, CoeffPlaintext, Plaintext
+from .context import Context, LevelKS, RescalePlan
+from .encoding import Encoder, crt_lift_center
+from .keys import KeySet, KSKey
+
+HEAVY_CHUNK = 8      # ciphertexts per key-switching call
+
+
+def _nct(ct: Ciphertext) -> int:
+    """Ciphertext count of a batched ct."""
+    return int(np.prod(ct.c0.shape[:-2], dtype=np.int64))
+
+
+class Evaluator:
+    def __init__(self, ctx: Context, keys: KeySet):
+        self.ctx = ctx
+        self.keys = keys
+        self.encoder = Encoder(ctx.cfg.n)
+        self._enc_rng = np.random.default_rng(ctx.cfg.seed ^ 0x5EED)
+        self._enc_cache: dict = {}
+        self._host_ntt: dict[int, NttTables] = {}
+
+    # ------------------------------------------------------------------
+    # encode / encrypt / decrypt
+    # ------------------------------------------------------------------
+
+    def _spread(self, coeffs: torch.Tensor, limbs) -> torch.Tensor:
+        """(..., N) int64 coefficients -> (..., L, N) int32 residues."""
+        return torch.remainder(coeffs[..., None, :], self.ctx.mod(limbs)).int()
+
+    def encode(self, values, nl: int | None = None, scale: float | None = None,
+               batch: bool = False) -> Plaintext:
+        """Slot values -> eval-domain plaintext at (nl, scale)."""
+        ctx = self.ctx
+        nl = ctx.num_q if nl is None else nl
+        scale = ctx.delta if scale is None else scale
+        vals = np.atleast_2d(np.asarray(values)) if batch else \
+            np.asarray(values)[None]
+        coeffs = np.stack([self.encoder.encode(v, scale) for v in vals])
+        limbs = ctx.limb_idx(nl)
+        data = ntt.fwd(self._spread(ctx.tensor(coeffs), limbs), ctx.ntt, limbs)
+        return Plaintext(data if batch else data[0], nl, scale)
+
+    def encode_cached(self, key, values, nl: int | None = None,
+                      scale: float | None = None) -> Plaintext:
+        """encode() memoized by a caller-supplied stable key."""
+        k = (key, nl, scale)
+        if k not in self._enc_cache:
+            self._enc_cache[k] = self.encode(values, nl=nl, scale=scale)
+        return self._enc_cache[k]
+
+    def encode_coeff_cached(self, key, values,
+                            scale: float | None = None) -> CoeffPlaintext:
+        """Level-independent plaintext (scaled int64 coefficients on the
+        device), memoized by a caller-supplied stable key."""
+        k = (key, float(scale) if scale is not None else None, "coeff")
+        if k not in self._enc_cache:
+            sc = self.ctx.delta if scale is None else scale
+            coeffs = self.encoder.encode(np.asarray(values), sc)
+            self._enc_cache[k] = CoeffPlaintext(self.ctx.tensor(coeffs), sc)
+        return self._enc_cache[k]
+
+    def encode_const(self, c: float, nl: int | None = None,
+                     scale: float | None = None) -> Plaintext:
+        """Constant-in-all-slots plaintext as an (nl, 1) broadcast (a
+        constant polynomial is constant in the eval domain)."""
+        ctx = self.ctx
+        nl = ctx.num_q if nl is None else nl
+        scale = ctx.delta if scale is None else scale
+        v = int(round(c * scale))
+        assert abs(v) < 1 << 62
+        qs = np.asarray([ctx.basis[i] for i in ctx.limb_idx(nl)], np.int64)
+        res = (np.int64(v) % qs).reshape(-1, 1).astype(np.int32)
+        return Plaintext(ctx.tensor(res), nl, scale)
+
+    def encrypt(self, values=None, pt: Plaintext | None = None,
+                nl: int | None = None, scale: float | None = None,
+                batch: bool = False) -> Ciphertext:
+        """Public-key encryption.  The noise (v ternary, e0/e1 rounded
+        Gaussians) is sampled on the device from a torch.Generator seeded
+        by the same host draw the JAX package seeds its threefry with."""
+        ctx = self.ctx
+        if pt is None:
+            pt = self.encode(values, nl, scale, batch)
+        nl = pt.nl
+        limbs = ctx.limb_idx(nl)
+        q = ctx.mod(limbs)
+        n = ctx.cfg.n
+        shape = tuple(pt.data.shape[:-2]) + (n,)
+        gen = torch.Generator(device=ctx.device)
+        gen.manual_seed(int(self._enc_rng.integers(0, 2 ** 31)))
+        sigma = float(ctx.cfg.sigma)
+        v = torch.randint(0, 3, shape, generator=gen, device=ctx.device) - 1
+        e0, e1 = (torch.round(sigma * torch.randn(
+            shape, generator=gen, device=ctx.device, dtype=torch.float64)
+        ).long() for _ in range(2))
+        v_e, e0_e, e1_e = (ntt.fwd(self._spread(x, limbs), ctx.ntt, limbs)
+                           for x in (v, e0, e1))
+        pk = self._require_keys("encrypt").pk
+        c0 = addmod(addmod(mulmod(pk.p0[:nl], v_e, q), e0_e, q), pt.data, q)
+        c1 = addmod(mulmod(pk.p1[:nl], v_e, q), e1_e, q)
+        return Ciphertext(c0, c1, nl, pt.scale)
+
+    def decrypt(self, ct: Ciphertext, crt_limbs: int = 3) -> np.ndarray:
+        """Decrypt + decode to complex slot values (batched): m_eval and
+        its inverse NTT on the device, then the centered CRT lift of the
+        first crt_limbs limbs and the decode on the host in float64."""
+        ctx = self.ctx
+        sk = self._require_keys("decrypt").sk
+        assert sk is not None, "secret key not retained"
+        ct = self.drop_to(ct, min(ct.nl, max(crt_limbs, 1)))
+        limbs = ctx.limb_idx(ct.nl)
+        q = ctx.mod(limbs)
+        m_eval = addmod(ct.c0, mulmod(ct.c1, sk.eval_full[: ct.nl], q), q)
+        coeffs = ntt.inv(m_eval, ctx.ntt, limbs).cpu().numpy()
+        return self._decode(coeffs, ct, min(crt_limbs, ct.nl))
+
+    def decrypt_host(self, ct: Ciphertext, crt_limbs: int = 3) -> np.ndarray:
+        """decrypt() entirely on the host: the first crt_limbs rows are
+        copied to the CPU and reduced there with the plain NTT."""
+        m = min(crt_limbs, ct.nl)
+        if m not in self._host_ntt:
+            self._host_ntt[m] = NttTables(self.ctx.cfg.n, self.ctx.qs[:m],
+                                          "cpu")
+        t = self._host_ntt[m]
+        c0 = ct.c0[..., :m, :].cpu()
+        c1 = ct.c1[..., :m, :].cpu()
+        s = self._require_keys("decrypt_host").sk.eval_full[:m].cpu()
+        q = t.q.view(-1, 1)
+        coeffs = ntt.inv_plain(addmod(c0, mulmod(c1, s, q), q), t,
+                               tuple(range(m)))
+        return self._decode(coeffs.numpy(), ct, m)
+
+    def _decode(self, coeffs: np.ndarray, ct: Ciphertext, m: int):
+        qs = self.ctx.qs[:m]
+        flat = coeffs.reshape((-1,) + coeffs.shape[-2:])
+        out = np.stack([self.encoder.decode(crt_lift_center(c[:m], qs),
+                                            ct.scale) for c in flat])
+        return out.reshape(*ct.batch_shape, self.ctx.cfg.slots)
+
+    def _require_keys(self, what: str) -> KeySet:
+        if self.keys is None:
+            raise RuntimeError(f"{what} needs keys")
+        return self.keys
+
+    # ------------------------------------------------------------------
+    # arithmetic and level/scale management
+    # ------------------------------------------------------------------
+
+    def drop_to(self, ct: Ciphertext, nl: int) -> Ciphertext:
+        """Modulus reduction by dropping limbs (free: slicing)."""
+        if ct.nl == nl:
+            return ct
+        assert nl < ct.nl
+        return ct.with_data(ct.c0[..., :nl, :], ct.c1[..., :nl, :], nl=nl)
+
+    def _align(self, a: Ciphertext, b: Ciphertext):
+        nl = min(a.nl, b.nl)
+        a = self.drop_to(a, nl)
+        b = self.drop_to(b, nl)
+        assert abs(a.scale / b.scale - 1.0) < 1e-9, \
+            f"scale mismatch {a.scale} vs {b.scale}: adjust first"
+        return a, b
+
+    def adjust(self, ct: Ciphertext, nl: int, scale: float) -> Ciphertext:
+        """Bring ct to exactly (nl, scale), spending one level on a
+        unit-constant multiply unless already matching."""
+        if ct.nl == nl and abs(ct.scale / scale - 1.0) < 1e-9:
+            return ct
+        assert ct.nl > nl, f"cannot raise level {ct.nl} -> {nl}"
+        ct = self.drop_to(ct, nl + 1)
+        if abs(ct.scale / scale - 1.0) < 1e-9:
+            return self.drop_to(ct, nl)
+        qd = float(self.ctx.qs[nl])
+        pt = self.encode_const(1.0, nl + 1, scale * qd / ct.scale)
+        out = self.mul_plain(ct, pt, rescale=True)
+        out.scale = scale  # exact by construction; avoid float drift
+        return out
+
+    def match(self, a: Ciphertext, b: Ciphertext):
+        """Bring two ciphertexts to a common exact (nl, scale), spending at
+        most one level on whichever branches need it."""
+        if a.nl == b.nl:
+            if abs(a.scale / b.scale - 1.0) < 1e-9:
+                return a, b
+            nl = a.nl - 1
+            s = self.ctx.delta
+            return self.adjust(a, nl, s), self.adjust(b, nl, s)
+        if a.nl > b.nl:
+            return self.adjust(a, b.nl, b.scale), b
+        return a, self.adjust(b, a.nl, a.scale)
+
+    def add(self, a: Ciphertext, b: Ciphertext) -> Ciphertext:
+        a, b = self._align(a, b)
+        q = self.ctx.mod(self.ctx.limb_idx(a.nl))
+        return a.with_data(addmod(a.c0, b.c0, q), addmod(a.c1, b.c1, q))
+
+    def sub(self, a: Ciphertext, b: Ciphertext) -> Ciphertext:
+        a, b = self._align(a, b)
+        q = self.ctx.mod(self.ctx.limb_idx(a.nl))
+        return a.with_data(submod(a.c0, b.c0, q), submod(a.c1, b.c1, q))
+
+    def _pt_to(self, pt: Plaintext, nl: int) -> Plaintext:
+        if pt.nl == nl:
+            return pt
+        assert nl < pt.nl
+        return Plaintext(pt.data[..., :nl, :], nl, pt.scale)
+
+    def add_plain(self, ct: Ciphertext, pt: Plaintext) -> Ciphertext:
+        pt = self._pt_to(pt, ct.nl)
+        assert abs(ct.scale / pt.scale - 1.0) < 1e-9
+        q = self.ctx.mod(self.ctx.limb_idx(ct.nl))
+        return ct.with_data(addmod(ct.c0, pt.data, q), ct.c1)
+
+    def mul_plain(self, ct: Ciphertext, pt: Plaintext,
+                  rescale: bool = True) -> Ciphertext:
+        _COUNTS.count("ctpt_mult", _nct(ct))
+        pt = self._pt_to(pt, ct.nl)
+        q = self.ctx.mod(self.ctx.limb_idx(ct.nl))
+        out = ct.with_data(mulmod(ct.c0, pt.data, q), mulmod(ct.c1, pt.data, q),
+                           scale=ct.scale * pt.scale)
+        return self.rescale(out) if rescale else out
+
+    def mul_scalar_int(self, ct: Ciphertext, k: int) -> Ciphertext:
+        """Multiply by a small integer (scale unchanged, message *= k)."""
+        limbs = self.ctx.limb_idx(ct.nl)
+        kv = np.asarray([k % self.ctx.basis[i] for i in limbs],
+                        np.int64).reshape(-1, 1).astype(np.int32)
+        kt = self.ctx.tensor(kv)
+        q = self.ctx.mod(limbs)
+        return ct.with_data(mulmod(ct.c0, kt, q), mulmod(ct.c1, kt, q))
+
+    def mul_scalar(self, ct: Ciphertext, x: float,
+                   rescale: bool = True) -> Ciphertext:
+        """Multiply by a real scalar via an integer at the working scale."""
+        qd = self.ctx.qs[ct.nl - 1]
+        out = self.mul_scalar_int(ct, int(round(x * qd)))
+        out.scale = ct.scale * qd
+        return self.rescale(out) if rescale else out
+
+    def rescale(self, ct: Ciphertext) -> Ciphertext:
+        """Drop the top limb; scale /= q_dropped (FLEXIBLEAUTO tracking)."""
+        nl = ct.nl
+        assert nl >= 2, "no scaling limb left to drop"
+        _COUNTS.count("rescale", _nct(ct))
+        c0, c1 = _rescale_body(self.ctx, ct.c0, ct.c1,
+                               self.ctx.rescale_tables(nl))
+        return Ciphertext(c0, c1, nl - 1, ct.scale / float(self.ctx.qs[nl - 1]))
+
+    def _batched(self, core, arrays):
+        """core(*arrays) over chunks of at most HEAVY_CHUNK ciphertexts of
+        the broadcast leading batch (operands are broadcast first)."""
+        shape = torch.broadcast_shapes(*(a.shape[:-2] for a in arrays))
+        count = int(np.prod(shape, dtype=np.int64))
+        if count <= HEAVY_CHUNK and len(shape) <= 1:
+            return core(*arrays)
+        flat = [a.expand(shape + a.shape[-2:]).reshape((count,) + a.shape[-2:])
+                for a in arrays]
+        outs = [core(*(f[s: s + HEAVY_CHUNK] for f in flat))
+                for s in range(0, count, HEAVY_CHUNK)]
+        return tuple(torch.cat(o).reshape(shape + o[0].shape[-2:])
+                     for o in zip(*outs))
+
+    def mul(self, a: Ciphertext, b: Ciphertext,
+            rescale: bool = True) -> Ciphertext:
+        """ct x ct with relinearization."""
+        a, b = self._align_mult(a, b)
+        _COUNTS.count("ctct_mult", _nct(a))
+        _COUNTS.count("keyswitch", _nct(a))
+        ks = self.ctx.ks_tables(a.nl)
+        relin = self._require_keys("mul/relin").relin
+        c0, c1 = self._batched(
+            lambda a0, a1, b0, b1: _mul_relin_core(self.ctx, a0, a1, b0, b1,
+                                                   relin, ks),
+            (a.c0, a.c1, b.c0, b.c1))
+        out = Ciphertext(c0, c1, a.nl, a.scale * b.scale)
+        return self.rescale(out) if rescale else out
+
+    def square(self, a: Ciphertext, rescale: bool = True) -> Ciphertext:
+        return self.mul(a, a, rescale)
+
+    def _align_mult(self, a: Ciphertext, b: Ciphertext):
+        nl = min(a.nl, b.nl)
+        return self.drop_to(a, nl), self.drop_to(b, nl)
+
+    def mul_double_sub(self, a: Ciphertext, b: Ciphertext,
+                       c: Ciphertext) -> Ciphertext:
+        """2*a*b - c (the Chebyshev T_{a+b} node): relinearized product,
+        doubling, rescale, and c's scale-matched subtraction.  c must sit at
+        least one level above the output."""
+        ctx = self.ctx
+        a, b = self._align_mult(a, b)
+        nl = a.nl
+        _COUNTS.count("ctct_mult", _nct(a))
+        _COUNTS.count("keyswitch", _nct(a))
+        _COUNTS.count("rescale", 2 * _nct(a))
+        s_out = a.scale * b.scale / float(ctx.qs[nl - 1])
+        nl_out = nl - 1
+        assert c.nl >= nl_out + 1, (c.nl, nl_out)
+        c = self.drop_to(c, nl_out + 1)
+        # c's scale-matching constant (the inlined `adjust`)
+        v_c = int(round(s_out * float(ctx.qs[nl_out]) / c.scale))
+        assert 0 < v_c < 1 << 62
+        limbs_c = ctx.limb_idx(nl_out + 1)
+        qs_c = np.asarray([ctx.basis[i] for i in limbs_c],
+                          np.int64).reshape(-1, 1)
+        vc = ctx.tensor((v_c % qs_c).astype(np.int32))
+        ks = ctx.ks_tables(nl)
+        relin = self._require_keys("mul/relin").relin
+        plan = ctx.rescale_tables(nl)
+        plan_c = ctx.rescale_tables(nl_out + 1)
+        qc = ctx.mod(limbs_c)
+
+        def core(a0, a1, b0, b1, e0, e1):
+            c0, c1 = _mul2_tail(ctx, a0, a1, b0, b1, relin, ks)
+            c0, c1 = _rescale_body(ctx, c0, c1, plan)
+            f0, f1 = _rescale_body(ctx, mulmod(e0, vc, qc),
+                                   mulmod(e1, vc, qc), plan_c)
+            return submod(c0, f0, plan_c.qrem), submod(c1, f1, plan_c.qrem)
+        c0, c1 = self._batched(core, (a.c0, a.c1, b.c0, b.c1, c.c0, c.c1))
+        return Ciphertext(c0, c1, nl_out, s_out)
+
+    def square_double_minus_one(self, a: Ciphertext) -> Ciphertext:
+        """2*a^2 - 1 (the Chebyshev T_{2m} node): relinearized square,
+        doubling, rescale and the -1."""
+        ctx = self.ctx
+        nl = a.nl
+        assert nl >= 2
+        _COUNTS.count("ctct_mult", _nct(a))
+        _COUNTS.count("keyswitch", _nct(a))
+        _COUNTS.count("rescale", _nct(a))
+        ks = ctx.ks_tables(nl)
+        relin = self._require_keys("mul/relin").relin
+        plan = ctx.rescale_tables(nl)
+        s_out = a.scale * a.scale / float(ctx.qs[nl - 1])
+        qs = np.asarray([ctx.basis[i] for i in ctx.limb_idx(nl - 1)], np.int64)
+        v = int(round(s_out))
+        assert 0 < v < 1 << 62
+        m1 = ctx.tensor(((-v) % qs).reshape(-1, 1).astype(np.int32))
+
+        def core(a0, a1):
+            c0, c1 = _mul2_tail(ctx, a0, a1, a0, a1, relin, ks)
+            c0, c1 = _rescale_body(ctx, c0, c1, plan)
+            return addmod(c0, m1, plan.qrem), c1
+        c0, c1 = self._batched(core, (a.c0, a.c1))
+        return Ciphertext(c0, c1, nl - 1, s_out)
+
+    # ------------------------------------------------------------------
+    # rotations
+    # ------------------------------------------------------------------
+
+    def _rot_key(self, r: int) -> KSKey:
+        slots = self.ctx.cfg.slots
+        rot = self._require_keys("rotate").rot
+        key = rot.get(r % slots) or rot.get(r % slots - slots)
+        assert key is not None, f"no rotation key for shift {r}"
+        return key
+
+    def _perm(self, r: int) -> torch.Tensor:
+        return self.ctx.galois_perm(self.ctx.galois_t(r % self.ctx.cfg.slots))
+
+    def has_rotation_keys(self, shifts) -> bool:
+        """True when every shift has a dedicated rotation key."""
+        if self.keys is None:
+            return False
+        slots = self.ctx.cfg.slots
+        for r in shifts:
+            rr = r % slots
+            if rr and rr not in self.keys.rot and \
+                    (rr - slots) not in self.keys.rot:
+                return False
+        return True
+
+    def rotate(self, ct: Ciphertext, r: int) -> Ciphertext:
+        """Cyclic slot rotation: out slot j = in slot (j + r) mod slots."""
+        if r % self.ctx.cfg.slots == 0:
+            return ct
+        _COUNTS.count("rotation", _nct(ct))
+        _COUNTS.count("keyswitch", _nct(ct))
+        key, perm = self._rot_key(r), self._perm(r)
+        ks = self.ctx.ks_tables(ct.nl)
+        c0, c1 = self._batched(
+            lambda a0, a1: _galois_core(self.ctx, a0, a1, perm, key, ks),
+            (ct.c0, ct.c1))
+        return ct.with_data(c0, c1)
+
+    def rotate_any(self, ct: Ciphertext, r: int) -> Ciphertext:
+        """Rotate by r, composing from available keys when no dedicated key
+        exists (signed binary over the +/- power-of-two set)."""
+        slots = self.ctx.cfg.slots
+        rr = r % slots
+        if rr == 0:
+            return ct
+        if self.has_rotation_keys([rr]):
+            return self.rotate(ct, rr)
+        for step in self._compose_shifts(rr):
+            ct = self.rotate(ct, step)
+        return ct
+
+    def _compose_shifts(self, rr: int) -> list[int]:
+        """The shorter of the binary expansions of rr and rr - slots whose
+        every step has a key."""
+        slots = self.ctx.cfg.slots
+        best = None
+        for v in (rr, rr - slots):
+            steps, x, b = [], abs(v), 0
+            sgn = 1 if v > 0 else -1
+            while x:
+                if x & 1:
+                    steps.append(sgn * (1 << b))
+                x >>= 1
+                b += 1
+            if self.has_rotation_keys(steps) and \
+                    (best is None or len(steps) < len(best)):
+                best = steps
+        assert best is not None, f"cannot compose rotation {rr}"
+        return best
+
+    def rotate_accumulate_tree(self, ct: Ciphertext, shifts) -> Ciphertext:
+        """ct := ct + rotate(ct, s) sequentially over `shifts` (the
+        rotsum/repeat log-trees).  Needs a dedicated key per shift."""
+        ctx = self.ctx
+        live = [s for s in shifts if s % ctx.cfg.slots != 0]
+        if not live:
+            return ct
+        _COUNTS.count("keyswitch", len(live) * _nct(ct))
+        _COUNTS.count("rotation", len(live) * _nct(ct))
+        steps = [(self._perm(s), self._rot_key(s)) for s in live]
+        ks = ctx.ks_tables(ct.nl)
+        q = ks.q_act
+
+        def core(c0, c1):
+            for perm, key in steps:
+                o0, o1 = _galois_core(ctx, c0, c1, perm, key, ks)
+                c0, c1 = addmod(c0, o0, q), addmod(c1, o1, q)
+            return c0, c1
+        c0, c1 = self._batched(core, (ct.c0, ct.c1))
+        return ct.with_data(c0, c1)
+
+    def multi_rotate_stack(self, ct: Ciphertext, shifts) -> Ciphertext:
+        """[rotate(ct, r) for r in shifts] stacked on a new leading axis,
+        with ONE hoisted decomposition shared by every rotation (each
+        rotation permutes the decomposed digits; dedicated keys only)."""
+        ctx = self.ctx
+        _COUNTS.count("keyswitch", len(shifts) * _nct(ct))
+        _COUNTS.count("rotation_hoisted", len(shifts) * _nct(ct))
+        ks = ctx.ks_tables(ct.nl)
+        y_e = _hoist_decompose(ctx, ct.c1, ks)
+        c0ps, accs = [], []
+        for r in shifts:
+            perm = self._perm(r)
+            c0ps.append(ct.c0.index_select(-1, perm))
+            accs.append(torch.stack(_inner_ext(
+                ctx, y_e.index_select(-1, perm), self._rot_key(r), ks)))
+        k = _mod_down(ctx, torch.stack(accs, 1), ks)      # (2, S, ..., nl, N)
+        return ct.with_data(addmod(torch.stack(c0ps), k[0], ks.q_act), k[1])
+
+    def multi_rotate_sum(self, cts: Ciphertext, shifts) -> Ciphertext:
+        """sum_g rotate(cts[g], shifts[g]); shift-0 entries skip the switch
+        and are added directly."""
+        ctx = self.ctx
+        slots = ctx.cfg.slots
+        ks = ctx.ks_tables(cts.nl)
+        rot_idx = [i for i, r in enumerate(shifts) if r % slots != 0]
+        id_idx = [i for i, r in enumerate(shifts) if r % slots == 0]
+        out = None
+        if rot_idx:
+            one = cts.with_data(cts.c0[0], cts.c1[0])
+            _COUNTS.count("keyswitch", len(rot_idx) * _nct(one))
+            perms = [self._perm(shifts[i]) for i in rot_idx]
+            keys = [self._rot_key(shifts[i]) for i in rot_idx]
+            o0, o1 = _galois_many(ctx, cts.c0[rot_idx], cts.c1[rot_idx],
+                                  perms, keys, ks)
+            q = ks.q_act
+            acc0, acc1 = o0[0], o1[0]
+            for g in range(1, len(rot_idx)):
+                acc0, acc1 = addmod(acc0, o0[g], q), addmod(acc1, o1[g], q)
+            out = one.with_data(acc0, acc1)
+        for i in id_idx:
+            t = cts.with_data(cts.c0[i], cts.c1[i])
+            out = t if out is None else self.add(out, t)
+        return out
+
+    # ------------------------------------------------------------------
+    # double-hoisted rotation combo (BSGS engine)
+    # ------------------------------------------------------------------
+
+    def hoist_decompose(self, ct: Ciphertext, ks: LevelKS) -> torch.Tensor:
+        """The key-switch decomposition of ct.c1, shared by every rotation
+        of a BSGS transform."""
+        return _hoist_decompose(self.ctx, ct.c1, ks)
+
+    def combo_stage1(self, ct: Ciphertext, y_e, shifts, ks: LevelKS):
+        """Per-baby work shared by every giant group: the Galois
+        permutation of (c0, y_e) and the extended-basis key inner products.
+        Returns stacked (c0p, t0, t1) with a row per shift."""
+        c0ps, t0s, t1s = [], [], []
+        for r in shifts:
+            perm = self._perm(r)
+            c0ps.append(ct.c0.index_select(-1, perm))
+            t0, t1 = _inner_ext(self.ctx, y_e.index_select(-1, perm),
+                                self._rot_key(r), ks)
+            t0s.append(t0)
+            t1s.append(t1)
+        return torch.stack(c0ps), torch.stack(t0s), torch.stack(t1s)
+
+    def _pt_expand_q(self, p: CoeffPlaintext, ks: LevelKS) -> Plaintext:
+        """Coefficient plaintext -> eval rows over the active Q basis."""
+        data = ntt.fwd(self._spread(p.coeffs, ks.act_idx), self.ctx.ntt,
+                       ks.act_idx)
+        return Plaintext(data, ks.nl, p.scale)
+
+    def _stage2_sums(self, stage1, idx, pts, ks: LevelKS):
+        """Plaintext-weighted sums of stage-1 rows `idx` for one giant
+        group: (a0 over Q, t0-sum and t1-sum over Q u P)."""
+        ctx = self.ctx
+        c0ps, t0s, t1s = stage1
+        nl = ks.nl
+        coeffs = torch.stack([p.coeffs for p in pts])
+        pt = ntt.fwd(self._spread(coeffs, ks.tgt_idx), ctx.ntt, ks.tgt_idx)
+        pt = pt.view((len(pts),) + (1,) * (c0ps.dim() - 3) + pt.shape[1:])
+        sel = torch.tensor(idx, device=ctx.device)
+
+        def wsum(rows, w, q):
+            prod = torch.remainder(rows.index_select(0, sel).long() * w, q)
+            return torch.remainder(prod.sum(0), q).int()
+        return (wsum(c0ps, pt[..., :nl, :], ks.q_act),
+                wsum(t0s, pt, ks.q_tgt), wsum(t1s, pt, ks.q_tgt))
+
+    def combo_stage2(self, ct: Ciphertext, stage1, items, shifts,
+                     ks: LevelKS) -> Ciphertext:
+        """One giant group's accumulation over stage-1 rows + a single lazy
+        mod-down.  items: (shift, CoeffPlaintext)."""
+        nl = ct.nl
+        slots = self.ctx.cfg.slots
+        pos = {r: i for i, r in enumerate(shifts)}
+        rot_items = [(r, p) for r, p in items if r % slots != 0]
+        id_items = [(r, p) for r, p in items if r % slots == 0]
+        scale = items[0][1].scale
+        out = None
+        if rot_items:
+            _COUNTS.count("combo_rot", len(rot_items) * _nct(ct))
+            _COUNTS.count("keyswitch", _nct(ct))
+            for _, p in rot_items:
+                assert abs(p.scale / scale - 1.0) < 1e-12
+            a0q, a0e, a1e = self._stage2_sums(
+                stage1, [pos[r] for r, _ in rot_items],
+                [p for _, p in rot_items], ks)
+            k = _mod_down(self.ctx, torch.stack((a0e, a1e)), ks)
+            out = Ciphertext(addmod(a0q, k[0], ks.q_act), k[1], nl,
+                             ct.scale * scale)
+        for _, p in id_items:
+            t = self.mul_plain(ct, self._pt_expand_q(p, ks), rescale=False)
+            out = t if out is None else self.add(out, t)
+        return out
+
+    def combo_stage2_all(self, ct: Ciphertext, stage1, groups, shifts,
+                         ks: LevelKS):
+        """Every giant group's accumulation and ONE batched mod-down.
+        groups: list of (giant_shift, [(baby_shift, CoeffPlaintext)]);
+        identity-baby terms fold in after the mod-down.  Returns
+        (giant_shifts, Ciphertext with a leading group axis)."""
+        ctx = self.ctx
+        slots = ctx.cfg.slots
+        pos = {r: i for i, r in enumerate(shifts)}
+        scale = groups[0][1][0][1].scale
+        a0qs, a0es, a1es, id_extra = [], [], [], []
+        n_rot = 0
+        for g, (_, items) in enumerate(groups):
+            rot = []
+            for r, p in items:
+                assert abs(p.scale / scale - 1.0) < 1e-12
+                if r % slots == 0:
+                    id_extra.append((g, p))
+                else:
+                    rot.append((r, p))
+            n_rot += len(rot)
+            if rot:
+                sums = self._stage2_sums(stage1, [pos[r] for r, _ in rot],
+                                         [p for _, p in rot], ks)
+            else:
+                z = stage1[0][0]
+                sums = (torch.zeros_like(z), torch.zeros_like(stage1[1][0]),
+                        torch.zeros_like(stage1[1][0]))
+            a0qs.append(sums[0])
+            a0es.append(sums[1])
+            a1es.append(sums[2])
+        _COUNTS.count("combo_rot", n_rot * _nct(ct))
+        _COUNTS.count("keyswitch", len(groups) * _nct(ct))      # G mod-downs
+        k = _mod_down(ctx, torch.stack((torch.stack(a0es), torch.stack(a1es))),
+                      ks)
+        c0 = addmod(torch.stack(a0qs), k[0], ks.q_act)
+        c1 = k[1]
+        for g, p in id_extra:
+            t = self.mul_plain(ct, self._pt_expand_q(p, ks), rescale=False)
+            c0[g] = addmod(c0[g], t.c0, ks.q_act)
+            c1[g] = addmod(c1[g], t.c1, ks.q_act)
+        return ([gs for gs, _ in groups],
+                Ciphertext(c0, c1, ct.nl, ct.scale * scale))
+
+
+# ----------------------------------------------------------------------
+# key-switch and rescale cores (plain functions on tensors)
+# ----------------------------------------------------------------------
+
+def _rescale_body(ctx: Context, c0, c1, plan: RescalePlan):
+    """Drop limb nl-1 of (c0, c1) with a centered lift: out = (c - lift(v))
+    * qd^-1 over the remaining limbs, v the dropped limb's coefficients."""
+    nl = plan.nl
+    x = torch.stack((c0, c1))
+    v = ntt.inv(x[..., nl - 1:, :], ctx.ntt, (nl - 1,))
+    vm = torch.remainder(v, plan.qrem)
+    lift = torch.where(v <= plan.half, vm, submod(vm, plan.qdm, plan.qrem))
+    lift_e = ntt.fwd(lift, ctx.ntt, ctx.limb_idx(nl - 1))
+    out = mulmod(submod(x[..., : nl - 1, :], lift_e, plan.qrem), plan.inv,
+                 plan.qrem)
+    return out[0], out[1]
+
+
+def _ks_decompose(ctx: Context, cx_coeff, ks: LevelKS, cx_eval):
+    """Digit-decompose + base-convert + NTT: returns the eval-domain digit
+    stack (nd, ..., nl + k, N).  Digit j's rows at its own group limbs skip
+    the NTT: fast base conversion is exact at the source primes, so those
+    rows are F_j^-1 * cx_eval."""
+    y_all = base_convert(cx_coeff, ks.bc)
+    own_e = mulmod(cx_eval, ks.own, ks.q_act)
+    outs = []
+    for j, g in enumerate(ks.groups):
+        lo, hi = g[0], g[-1] + 1
+        rows = y_all[j]
+        z = ntt.fwd(torch.cat([rows[..., :lo, :], rows[..., hi:, :]], -2),
+                    ctx.ntt, ks.comp_idx[j])
+        outs.append(torch.cat([z[..., :lo, :], own_e[..., lo:hi, :],
+                               z[..., lo:, :]], -2))
+    return torch.stack(outs)
+
+
+def _hoist_decompose(ctx: Context, c1, ks: LevelKS):
+    return _ks_decompose(ctx, ntt.inv(c1, ctx.ntt, ks.act_idx), ks, c1)
+
+
+def _inner_ext(ctx: Context, y_e, key: KSKey, ks: LevelKS):
+    """Key-digit inner products over the extended basis Q u P (the mod-down
+    is the caller's).  The key's rows are read in place: actives [0, nl)
+    and the specials block."""
+    nd = y_e.shape[0]
+    nl = ks.nl
+    bshape = (nd,) + (1,) * (y_e.dim() - 3)
+    out = []
+    for half in (key.b, key.a):
+        parts = []
+        for y, k, q in ((y_e[..., :nl, :], half[:nd, :nl], ks.q_act),
+                        (y_e[..., nl:, :], half[:nd, ctx.num_q:], ks.q_sp)):
+            k = k.reshape(bshape + k.shape[1:])
+            prod = torch.remainder(y.long() * k, q)
+            parts.append(torch.remainder(prod.sum(0), q).int())
+        out.append(torch.cat(parts, -2))
+    return out[0], out[1]
+
+
+def _md_overflow(w, mdq40):
+    """round(sum_t w_t / p_t), the CRT overflow of the fast base conversion
+    P -> Q, in the JAX package's exact fixed point: integer 16-bit partial
+    sums, combined in float32 at the end and rounded half to even."""
+    w = w.long()
+    a = (w & 0xFFFF) * mdq40
+    b = (w >> 16) * mdq40
+    al = (a & 0xFFFF).sum(-2, keepdim=True)
+    ahbb = ((a >> 16) + b).sum(-2, keepdim=True)
+    s = al.float() * (2.0 ** -40) + ahbb.float() * (2.0 ** -24)
+    return torch.round(s).int()
+
+
+def _mod_down(ctx: Context, x, ks: LevelKS):
+    """(..., nl + k, N) over Q*P -> (..., nl, N) over Q: divide by P,
+    rounded (centered by the overflow correction)."""
+    nl = ks.nl
+    vp = ntt.inv(x[..., nl:, :], ctx.ntt, ks.sp_idx)
+    w = mulmod(vp, ks.pfold, ks.q_sp)
+    v = _md_overflow(w, ks.mdq40)
+    y = base_convert(w, ks.md, prefolded=True)[0]
+    y = submod(y, mulmod(v, ks.pmod, ks.q_act), ks.q_act)
+    y_e = ntt.fwd(y, ctx.ntt, ks.act_idx)
+    return mulmod(submod(x[..., :nl, :], y_e, ks.q_act), ks.pinv, ks.q_act)
+
+
+def _galois_many(ctx: Context, c0s, c1s, perms, keys, ks: LevelKS):
+    """Independent Galois key switches of cts[g] by (perms[g], keys[g]),
+    batched through one decomposition and one mod-down.  Each ct is
+    permuted BEFORE its decomposition (not hoisted)."""
+    r0 = torch.stack([c.index_select(-1, p) for c, p in zip(c0s, perms)])
+    r1 = torch.stack([c.index_select(-1, p) for c, p in zip(c1s, perms)])
+    y_e = _hoist_decompose(ctx, r1, ks)              # (nd, G, ..., tgt, N)
+    accs = [torch.stack(_inner_ext(ctx, y_e[:, g], key, ks))
+            for g, key in enumerate(keys)]
+    k = _mod_down(ctx, torch.stack(accs, 1), ks)      # (2, G, ..., nl, N)
+    return addmod(r0, k[0], ks.q_act), k[1]
+
+
+def _galois_core(ctx: Context, c0, c1, perm, key: KSKey, ks: LevelKS):
+    o0, o1 = _galois_many(ctx, c0[None], c1[None], [perm], [key], ks)
+    return o0[0], o1[0]
+
+
+def _relin(ctx: Context, d2, relin: KSKey, ks: LevelKS):
+    y_e = _hoist_decompose(ctx, d2, ks)
+    k = _mod_down(ctx, torch.stack(_inner_ext(ctx, y_e, relin, ks)), ks)
+    return k[0], k[1]
+
+
+def _mul_relin_core(ctx: Context, a0, a1, b0, b1, relin: KSKey, ks: LevelKS):
+    q = ks.q_act
+    d0 = mulmod(a0, b0, q)
+    d1 = addmod(mulmod(a0, b1, q), mulmod(a1, b0, q), q)
+    k0, k1 = _relin(ctx, mulmod(a1, b1, q), relin, ks)
+    return addmod(d0, k0, q), addmod(d1, k1, q)
+
+
+def _mul2_tail(ctx: Context, a0, a1, b0, b1, relin: KSKey, ks: LevelKS):
+    """Relinearized product, doubled (head of the Chebyshev nodes)."""
+    q = ks.q_act
+    c0, c1 = _mul_relin_core(ctx, a0, a1, b0, b1, relin, ks)
+    return addmod(c0, c0, q), addmod(c1, c1, q)

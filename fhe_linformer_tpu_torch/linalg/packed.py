@@ -1,0 +1,200 @@
+"""Packed homomorphic linear algebra over CKKS slots: the subset of the JAX
+package's `linalg/packed.py` that the block-major circuit calls (masks,
+rotate-accumulate trees, batched interleave/deinterleave, the RE weight
+layout and the BSGS diagonal transform on the double-hoisted combo).
+
+Layout conventions over slots = nb * d:
+  expanded:  slot[d*j + i] = v[j]   (value j fills block j)
+  repeated:  slot[d*j + i] = v[i]   (d-vector tiled nb times)
+"""
+
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+
+from ..ckks.ciphertext import Ciphertext
+from ..ckks.evaluator import Evaluator
+
+
+def _log2(x: int) -> int:
+    lg = x.bit_length() - 1
+    assert 1 << lg == x, f"{x} not a power of two"
+    return lg
+
+
+class PackedOps:
+    def __init__(self, ev: Evaluator, d: int = 128):
+        self.ev = ev
+        self.d = d
+        self.slots = ev.ctx.cfg.slots
+        self.nb = self.slots // d
+
+    def matrix_re_slots(self, W: np.ndarray) -> np.ndarray:
+        """Weight layout slot[d*j + i] = W[i][j]."""
+        d = self.d
+        out = np.zeros(self.slots)
+        W = np.asarray(W)
+        if W.shape[0] == d:
+            out[: W.shape[1] * d] = W.T.reshape(-1)[: W.shape[1] * d]
+        else:
+            Wt = np.pad(W.T, ((0, 0), (0, d - W.shape[0]))).reshape(-1)
+            out[: Wt.shape[0]] = Wt
+        return out
+
+    # -- masks -------------------------------------------------------------
+
+    def mask_block(self, j: int, value: float = 1.0) -> np.ndarray:
+        m = np.zeros(self.slots)
+        m[j * self.d: (j + 1) * self.d] = value
+        return m
+
+    def mask_mod_n(self, n: int, value: float = 1.0,
+                   offset: int = 0) -> np.ndarray:
+        m = np.zeros(self.slots)
+        m[offset::n] = value
+        return m
+
+    def mask_first_n(self, n: int, value: float = 1.0) -> np.ndarray:
+        m = np.zeros(self.slots)
+        m[:n] = value
+        return m
+
+    def mask_heads(self, stride: int, value: float = 1.0) -> np.ndarray:
+        """1 on the first `stride` lanes of every block."""
+        m = np.zeros(self.slots)
+        for j in range(self.nb):
+            m[j * self.d: j * self.d + stride] = value
+        return m
+
+    # -- rotate-accumulate trees --------------------------------------------
+
+    def rotsum(self, ct: Ciphertext, count: int, padding: int) -> Ciphertext:
+        """slot[s] += sum over count strided copies: log-depth tree."""
+        return self._acc_tree(ct, [padding * (1 << i)
+                                   for i in range(_log2(count))])
+
+    def repeat(self, ct: Ciphertext, count: int,
+               padding: int = 1) -> Ciphertext:
+        """Broadcast by negative-rotation tree."""
+        return self._acc_tree(ct, [-padding * (1 << i)
+                                   for i in range(_log2(count))])
+
+    def _acc_tree(self, ct: Ciphertext, shifts) -> Ciphertext:
+        ev = self.ev
+        if ev.has_rotation_keys(shifts):
+            return ev.rotate_accumulate_tree(ct, shifts)
+        for s in shifts:
+            ct = ev.add(ct, ev.rotate(ct, s))
+        return ct
+
+    # -- batched log-tree interleave -----------------------------------------
+
+    def interleave_batch(self, ct: Ciphertext, stride: int = 1) -> Ciphertext:
+        """(m, ...) batch -> single ct; batch index t lands at lane offset
+        t*stride.  Caller pre-masks so merged slots don't collide."""
+        ev = self.ev
+        m = ct.c0.shape[0]
+        mp = 1 << (m - 1).bit_length()
+        if mp != m:
+            pad = torch.zeros((mp - m,) + ct.c0.shape[1:], dtype=ct.c0.dtype,
+                              device=ct.c0.device)
+            ct = ct.with_data(torch.cat([ct.c0, pad]), torch.cat([ct.c1, pad]))
+        step = 1
+        while ct.c0.shape[0] > 1:
+            even = ct.with_data(ct.c0[0::2], ct.c1[0::2])
+            odd = ev.rotate(ct.with_data(ct.c0[1::2], ct.c1[1::2]),
+                            -step * stride)
+            ct = ev.add(even, odd)
+            step *= 2
+        return ct.with_data(ct.c0[0], ct.c1[0])
+
+    def deinterleave_batch(self, ct: Ciphertext, m: int,
+                           stride: int = 1) -> Ciphertext:
+        """Single ct -> (m, ...) batch with element t = rotate(ct, t*stride).
+        The prefix of shifts with dedicated keys builds via one hoisted
+        multi-rotate; remaining doublings use batched rotations."""
+        ev = self.ev
+        p = 1
+        while p * 2 <= m and ev.has_rotation_keys(
+                [t * stride for t in range(1, p * 2)]):
+            p *= 2
+        if p > 1:
+            stk = ev.multi_rotate_stack(ct, [t * stride for t in range(1, p)])
+            out = ct.with_data(torch.cat([ct.c0[None], stk.c0]),
+                               torch.cat([ct.c1[None], stk.c1]))
+        else:
+            out = ct.with_data(ct.c0[None], ct.c1[None])
+        k = p
+        while out.c0.shape[0] < m:
+            rot = ev.rotate(out, k * stride)
+            out = out.with_data(torch.cat([out.c0, rot.c0]),
+                                torch.cat([out.c1, rot.c1]))
+            k *= 2
+        return out.with_data(out.c0[:m], out.c1[:m])
+
+    # -- BSGS diagonal transform on the double-hoisted combo -------------------
+
+    def bsgs_diag_transform(self, ct: Ciphertext, diags: dict[int, np.ndarray],
+                            bs: int) -> Ciphertext:
+        """y_i = sum_k diags[k][i] * x[(i+k) mod slots]: BSGS over a sparse
+        diagonal set with offsets decomposed stride-aware as
+        k = stride*(g*bs + j).  The decomposition runs once; stage 1 (per
+        baby permutation + key inner products) is shared by every giant
+        group; each group accumulates plaintext-weighted rows with one lazy
+        mod-down; giant shifts without a dedicated key compose
+        (rotate_any).  Plaintexts are level-independent coefficient
+        vectors at the working scale, cached per diagonal."""
+        ev = self.ev
+        stride = self._diag_stride(diags.keys(), self.slots)
+        by_giant: dict[int, dict[int, np.ndarray]] = {}
+        for k, d in diags.items():
+            g, j = divmod((k % self.slots) // stride, bs)
+            by_giant.setdefault(g, {})[j] = d
+        ks = ev.ctx.ks_tables(ct.nl)
+        y_e = ev.hoist_decompose(ct, ks)
+        baby_shifts = sorted({j * stride for js in by_giant.values()
+                              for j in js if j})
+        stage1 = ev.combo_stage1(ct, y_e, baby_shifts, ks) \
+            if baby_shifts else None
+        groups = []
+        for g, js in sorted(by_giant.items()):
+            items = []
+            for j, d in sorted(js.items()):
+                dk = np.roll(np.asarray(d), g * bs * stride)
+                cp = ev.encode_coeff_cached((id(diags), g, j), dk)
+                items.append((j * stride, cp))
+            groups.append((g * bs * stride, items))
+        if stage1 is not None and ev.has_rotation_keys(gs for gs, _ in groups):
+            gshifts, stacked = ev.combo_stage2_all(ct, stage1, groups,
+                                                   baby_shifts, ks)
+            acc = ev.multi_rotate_sum(stacked, gshifts)
+        else:
+            acc = None
+            for gshift, items in groups:
+                inner = ev.combo_stage2(ct, stage1, items, baby_shifts, ks)
+                rot = ev.rotate_any(inner, gshift) if gshift else inner
+                acc = rot if acc is None else ev.add(acc, rot)
+        return ev.rescale(acc)
+
+    @staticmethod
+    def _diag_stride(offsets, slots: int) -> int:
+        g = slots
+        for k in offsets:
+            if k % slots:
+                g = math.gcd(g, k % slots)
+        return max(g, 1)
+
+    @staticmethod
+    def bsgs_required_rotations(offsets, bs: int, slots: int) -> set[int]:
+        stride = PackedOps._diag_stride(offsets, slots)
+        need = set()
+        for k in offsets:
+            g, j = divmod((k % slots) // stride, bs)
+            if j:
+                need.add(j * stride)
+            if g:
+                need.add(g * bs * stride)
+        return need

@@ -1,0 +1,144 @@
+"""The port's block-major Linformer circuit against the JAX package and the
+plaintext golden model, at the JAX package's own tiny parameterization
+(tests/test_circuit_packed.py: d = 8, k_lin = 4, slots = 128, nb = 16
+tokens per ciphertext, num_scaling 58, no bootstrap).
+
+  * BlockOps.matmul on a JAX-made ciphertext: bit-exact vs JAX
+  * one degree-13 GELU gadget: bit-exact vs JAX
+  * the port's whole PackedLinformer.forward: logits vs golden
+  * (slow) the whole forward from the same JAX-encrypted inputs:
+    bit-exact vs the JAX forward
+"""
+
+from dataclasses import fields
+
+import numpy as np
+import pytest
+import torch
+
+from fhe_linformer_tpu.ckks import CKKSConfig as JConfig, Context as JContext
+from fhe_linformer_tpu.ckks import Evaluator as JEvaluator
+from fhe_linformer_tpu.ckks import generate_keys as jgenerate_keys
+from fhe_linformer_tpu.linalg.blockmat import BlockOps as JBlockOps
+from fhe_linformer_tpu.models import golden as jgolden
+from fhe_linformer_tpu.models.circuit import CircuitParams as JParams
+from fhe_linformer_tpu.models.circuit_packed import (
+    PackedLinformer as JPackedLinformer)
+from fhe_linformer_tpu.poly.gadgets import Gadgets as JGadgets
+from fhe_linformer_tpu_torch import convert
+from fhe_linformer_tpu_torch.ckks.context import CKKSConfig, Context
+from fhe_linformer_tpu_torch.ckks.evaluator import Evaluator
+from fhe_linformer_tpu_torch.linalg.blockmat import BlockOps
+from fhe_linformer_tpu_torch.models import golden
+from fhe_linformer_tpu_torch.models.circuit import CircuitParams
+from fhe_linformer_tpu_torch.models.circuit_packed import PackedLinformer
+from fhe_linformer_tpu_torch.poly.gadgets import Gadgets
+
+PARAMS = dict(n=256, scale_bits=26, num_scaling=58, dnum=8, seed=99)
+D, KLIN, FFN, NCLS = 8, 4, 32, 5
+BS = 4
+
+
+def _rotations(slots):
+    pow2, s = [], 1
+    while s < slots:
+        pow2 += [s, -s]
+        s *= 2
+    return tuple(pow2 + [j for j in range(1, BS) if j & (j - 1)])
+
+
+@pytest.fixture(scope="module")
+def env():
+    torch.set_num_threads(2)
+    jctx = JContext(JConfig(**PARAMS))
+    jkeys = jgenerate_keys(jctx, rotations=_rotations(jctx.cfg.slots))
+    jev = JEvaluator(jctx, jkeys)
+    ctx = Context(CKKSConfig(**PARAMS), device="cpu")
+    a = np.asarray
+    keys = convert.keys_from_numpy(
+        ctx, jkeys.sk.coeffs, a(jkeys.sk.eval_full), a(jkeys.pk.p0),
+        a(jkeys.pk.p1), (a(jkeys.relin.b), a(jkeys.relin.a)),
+        {r: (a(k.b), a(k.a)) for r, k in jkeys.rot.items()})
+    jw = jgolden.random_weights(d=D, k_lin=KLIN, d_ffn=FFN, n_classes=NCLS,
+                                max_seq=40, seed=5, scale=0.35)
+    w = convert.weights_from_numpy(
+        {f.name: np.asarray(getattr(jw, f.name)) for f in fields(jw)})
+    return jev, Evaluator(ctx, keys), w
+
+
+def _port_ct(ev, jct):
+    return convert.ciphertext_from_numpy(ev.ctx, np.asarray(jct.c0),
+                                         np.asarray(jct.c1), jct.nl, jct.scale)
+
+
+def _assert_same(ct, jct):
+    assert (ct.nl, ct.scale) == (jct.nl, jct.scale)
+    c0, c1, _, _ = convert.ciphertext_to_numpy(ct)
+    np.testing.assert_array_equal(c0, np.asarray(jct.c0))
+    np.testing.assert_array_equal(c1, np.asarray(jct.c1))
+
+
+def test_block_matmul_bit_exact(env):
+    jev, ev, _ = env
+    jb, pb = JBlockOps(jev, D, bs=BS), BlockOps(ev, D, bs=BS)
+    rng = np.random.default_rng(0)
+    X = rng.normal(0, 0.5, (jb.nb, D))
+    W = rng.normal(0, 0.4, (D, D))
+    b = rng.normal(0, 0.2, D)
+    jct = jev.encrypt(jb.pack(X))
+    jout = jb.matmul(jct, W, "t", bias=b)
+    out = pb.matmul(_port_ct(ev, jct), W, "t", bias=b)
+    _assert_same(out, jout)
+    got = pb.unpack(np.real(ev.decrypt(out)), pb.nb)
+    np.testing.assert_allclose(got, X @ W.T + b[None], atol=2e-2)
+
+
+def test_gelu_gadget_bit_exact(env):
+    jev, ev, _ = env
+    rng = np.random.default_rng(1)
+    z = rng.uniform(-0.9, 0.9, (2, jev.ctx.cfg.slots))
+    jct = jev.encrypt(z, batch=True, nl=20)
+    jout = JGadgets(jev).eval_gelu(jct, -1.0, 1.0, mult=0.5, degree=13)
+    out = Gadgets(ev).eval_gelu(_port_ct(ev, jct), -1.0, 1.0, mult=0.5,
+                                degree=13)
+    _assert_same(out, jout)
+
+
+def _calibrated(w, emb):
+    """The JAX package's test calibration (tests/test_circuit_packed.py)."""
+    _, inter = golden.forward(w, emb, return_intermediates=True)
+    rowsum = inter["exp"].sum(-1)
+    h_in = inter["norm1"] @ w.W1.T + w.B1[None]
+    p_in = inter["norm2"][:1] @ w.Wp.T + w.bp[None]
+    return dict(inv_range=(0.8 * rowsum.min(), 1.25 * rowsum.max()),
+                inv_degree=27, gelu_clip=1.0 / (1.15 * np.abs(h_in).max()),
+                gelu_degree=27, tanh_scale=1.0 / (1.15 * np.abs(p_in).max()),
+                tanh_degree=27)
+
+
+@pytest.mark.parametrize("S", [6, 20], ids=["one_chunk", "two_chunks"])
+def test_packed_forward_matches_golden(env, S):
+    """S = 20 > nb = 16 runs the attention's chunk loop."""
+    _, ev, w = env
+    emb = np.random.default_rng(11 + S).normal(0, 0.3, (S - 1, D))
+    circ = PackedLinformer(ev, w, CircuitParams(**_calibrated(w, emb)), bs=BS)
+    logits = circ.decrypt_logits(circ.forward(emb))
+    want = golden.forward(w, emb, return_intermediates=True)[1]["logits"]
+    assert np.argmax(logits) == np.argmax(want), (logits, want)
+    np.testing.assert_allclose(logits, want, atol=0.05, rtol=0.05)
+
+
+@pytest.mark.slow
+def test_packed_forward_bit_exact_vs_jax(env):
+    """The whole layer + pooler/classifier from the same JAX-encrypted
+    inputs, against the JAX forward (minutes of XLA compiles)."""
+    jev, ev, w = env
+    emb = np.random.default_rng(17).normal(0, 0.3, (5, D))
+    kw = _calibrated(w, emb)
+    jcirc = JPackedLinformer(jev, w, JParams(**kw), bs=BS)
+    circ = PackedLinformer(ev, w, CircuitParams(**kw), bs=BS)
+    jx, jxe, jxf, S_total = jcirc.encrypt_inputs(emb)
+    jout = jcirc.pooler_classifier(jcirc.encoder_layer(jx, jxe, jxf, S_total))
+    out = circ.pooler_classifier(circ.encoder_layer(
+        _port_ct(ev, jx), _port_ct(ev, jxe), _port_ct(ev, jxf), S_total))
+    _assert_same(out, jout)

@@ -1,0 +1,73 @@
+"""The port's NTT (fhe_linformer_tpu_torch.ops.ntt) against the JAX
+package's XLA four-step (`ops.ntt._fwd/_inv`) and its Pallas kernels run
+in interpret mode (`ops.ntt_pallas.fwd/inv`), bit-exact, at n = 2^11 and
+at the production ring n = 2^15 (L = 3 limbs, batch 2).
+
+The port's CUDA kernels K1/K2 compute the same butterflies as the plain
+version tested here; chip_smoke.py holds them against it on the card."""
+
+import numpy as np
+import jax.numpy as jnp
+import pytest
+import torch
+
+from fhe_linformer_tpu.ops import ntt_pallas
+from fhe_linformer_tpu.ops.ntt import NttContext, _fwd, _inv
+from fhe_linformer_tpu.primes import ntt_primes
+from fhe_linformer_tpu_torch.ops import ntt, ntt_cuda
+
+L, B = 3, 2
+
+
+@pytest.fixture(scope="module", params=[1 << 11, 1 << 15], ids=["n2^11", "n2^15"])
+def case(request):
+    torch.set_num_threads(2)
+    n = request.param
+    qs = ntt_primes(2 * n, L)
+    rng = np.random.default_rng(7)
+    x = np.stack([[rng.integers(0, q, n, dtype=np.uint32) for q in qs]
+                  for _ in range(B)])
+    jctx = NttContext(n, qs)
+    xj = jnp.asarray(x)
+    want = {"fwd": np.asarray(_fwd(xj, jctx.full)),
+            "inv": np.asarray(_inv(xj, jctx.full))}
+    tables = ntt.NttTables(n, qs, "cpu")
+    return jctx, tables, x, want
+
+
+def _port(tables, x, direction, limbs=(0, 1, 2)):
+    f = ntt.fwd if direction == "fwd" else ntt.inv
+    out = f(torch.from_numpy(x.astype(np.int32)), tables, limbs)
+    assert out.dtype == torch.int32
+    return out.numpy().astype(np.uint32)
+
+
+@pytest.mark.parametrize("direction", ["fwd", "inv"])
+def test_matches_jax_xla(case, direction):
+    _, tables, x, want = case
+    np.testing.assert_array_equal(_port(tables, x, direction), want[direction])
+
+
+@pytest.mark.parametrize("direction", ["fwd", "inv"])
+def test_matches_pallas_interpret(case, direction):
+    jctx, tables, x, _ = case
+    kern = ntt_pallas.fwd if direction == "fwd" else ntt_pallas.inv
+    want = np.asarray(kern(jnp.asarray(x), jctx.full, interpret=True))
+    np.testing.assert_array_equal(_port(tables, x, direction), want)
+
+
+def test_limb_subset_and_roundtrip(case):
+    """A row subset named by basis index uses that limb's tables (the
+    lazy limb subsets of the JAX NttContext.tables)."""
+    jctx, tables, x, want = case
+    sub = np.ascontiguousarray(x[:, [2, 0]])
+    got = _port(tables, sub, "fwd", limbs=(2, 0))
+    np.testing.assert_array_equal(got, want["fwd"][:, [2, 0]])
+    back = _port(tables, got, "inv", limbs=(2, 0))
+    np.testing.assert_array_equal(back, sub)
+
+
+def test_cuda_wrapper_refuses_cpu_tensor(case):
+    _, tables, x, _ = case
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        ntt_cuda.fwd(torch.from_numpy(x.astype(np.int32)), tables, (0, 1, 2))
