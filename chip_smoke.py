@@ -4,13 +4,13 @@
     python3 chip_smoke.py            # every phase; needs one CUDA card
 
 Phases, each printing one JSON line:
-  1. card     - nvidia-smi name and power limit, torch/CUDA versions, and
-                the nvcc build of every kernel in fhe_linformer_tpu_torch/csrc
+  1. card     - nvidia-smi name, power limit and maximum SM clock,
+                torch/CUDA versions, and the nvcc build of every kernel in
+                fhe_linformer_tpu_torch/csrc (with ptxas registers/spills)
   2. kernels  - each CUDA kernel against its plain PyTorch version on the
-                card at the main path's shapes: exact equality, median time,
-                the plain version's time, and the least time the card could
-                take (bytes over 3.35 TB/s or 32-bit multiplies over the
-                float32 FMA lane rate, whichever is larger)
+                card at every shape the main path sends it: exact equality,
+                median time, the plain version's time, and the least time
+                the card could take (`bound`)
   3. keyswitch - one Galois key switch at N = 2^15, 24 limbs, dnum 3,
                 batch 4: the yardstick for later speed work
   4. forward  - the block-major encrypted Linformer (d = 128, k_lin = 32,
@@ -18,16 +18,22 @@ Phases, each printing one JSON line:
                 linformer-boot-w parameters without bootstrapping, answering
                 two requests (S = 128 and S = 200 tokens); per stage wall
                 time, key switches, kernel launches, and the decrypted
-                logits against the plaintext golden model
+                logits against the plaintext golden model; then one traced
+                warm S = 128 request (device time per kernel, idle share,
+                and the shapes each kernel was launched at)
   5. the `kernels` line: every kernel with its launches during phase 4
 
 It ends with {"ok": true, "device": {...}}.  Any failure raises and exits
 non-zero before that line.  There is no CPU path: the script refuses to run
-without CUDA.
+without CUDA.  `--only card,kernels` runs a subset of the phases (and
+prints no result line), for a quick check of a new kernel.
 """
 
 from __future__ import annotations
 
+import argparse
+import contextlib
+import functools
 import json
 import os
 import subprocess
@@ -37,9 +43,11 @@ import time
 import numpy as np
 
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory
-# 32-bit integer multiplies run on the float32 FMA lanes: 67 TFLOP/s of
-# float32 counts two flops per FMA, so at most 33.5e12 multiplies a second
-INT_MUL_PER_S = 33.5e12
+INT8_TC_OPS_PER_S = 1979e12      # H100 SXM dense int8 tensor-core rate
+# 32-bit integer multiplies: the CUDA C++ Programming Guide's arithmetic
+# instruction throughput table gives compute capability 9.0 64 results per
+# clock per SM for 32-bit integer multiply(-add), half the float32 FMA rate
+INT_MUL_PER_CLOCK_PER_SM = 64
 PORT = "fhe_linformer_tpu_torch"
 REFERENCE = PORT.removesuffix("_torch")      # the JAX package the port mirrors
 REPLACES = {"ntt_fwd": f"{REFERENCE}/ops/ntt_pallas.py:195",
@@ -48,15 +56,17 @@ REPLACES = {"ntt_fwd": f"{REFERENCE}/ops/ntt_pallas.py:195",
 SOURCES = {"ntt_fwd": f"{PORT}/csrc/ntt.cu", "ntt_inv": f"{PORT}/csrc/ntt.cu",
            "base_convert": f"{PORT}/csrc/basecvt.cu"}
 LOG2N = 15
+MODDOWN_BATCH = 16       # the mod-down's batch on the forward (2 halves x 8)
 
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
 
 
-def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
-    """Median milliseconds of fn() over `reps` calls, each timed by CUDA
-    events around the call."""
+def cuda_ms(fn, reps: int, warmup: int = 2, inner: int = 1) -> float:
+    """Median milliseconds of one fn() call: `reps` samples, each timed by
+    CUDA events around `inner` back-to-back calls (so the host's launch
+    time hides behind the device's work when the kernel is short)."""
     import torch
     for _ in range(warmup):
         fn()
@@ -66,16 +76,35 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
         start = torch.cuda.Event(enable_timing=True)
         stop = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(inner):
+            fn()
         stop.record()
         stop.synchronize()
-        times.append(start.elapsed_time(stop))
+        times.append(start.elapsed_time(stop) / inner)
     return float(np.median(times))
 
 
-def bound(nbytes: float, mults: float) -> tuple[float, str]:
+@functools.cache
+def card_clock() -> tuple[int, float, float]:
+    """(SMs, maximum SM clock in MHz, 32-bit integer multiplies per second
+    = SMs x 64 x that clock) of card 0."""
+    import torch
+    mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True).stdout.split()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return sms, mhz, sms * INT_MUL_PER_CLOCK_PER_SM * mhz * 1e6
+
+
+def bound(nbytes: float, int_muls: float, tc_ops: float = 0.0
+          ) -> tuple[float, str]:
+    """The least time (ms) the card could take: bytes over the memory rate,
+    or operations over their unit's peak (32-bit multiplies on the CUDA
+    cores, int8 operations on the tensor cores), whichever is larger."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = mults / INT_MUL_PER_S * 1e3
+    t_ops = max(int_muls / card_clock()[2],
+                tc_ops / INT8_TC_OPS_PER_S) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -99,15 +128,18 @@ def phase_card():
          "--format=csv,noheader"], capture_output=True, text=True, check=True)
     card = smi.stdout.strip().splitlines()[0]
     print(card, flush=True)
+    sms, mhz, int_mul_per_s = card_clock()
     t0 = time.perf_counter()
     report = cuda_build.build()
     emit({"phase": "card", "nvidia_smi": card,
           "torch": torch.__version__, "cuda": torch.version.cuda,
-          "device": torch.cuda.get_device_name(0),
+          "device": torch.cuda.get_device_name(0), "sms": sms,
+          "max_sm_clock_mhz": mhz, "int_mul_per_s": int_mul_per_s,
           "build_s": time.perf_counter() - t0,
           "build": {k: {"seconds": v["seconds"],
-                        "ptxas": [ln for ln in v["ptxas"].splitlines()
-                                  if "registers" in ln or "spill" in ln]}
+                        "ptxas": [ln.strip() for ln in v["ptxas"].splitlines()
+                                  if "registers" in ln or "spill" in ln
+                                  or "Compiling entry" in ln]}
                     for k, v in report.items()}})
 
 
@@ -115,80 +147,124 @@ def phase_card():
 # phase 2
 
 
-def _ntt_case(tables, B, L, gen, reps):
+def _held(name, got, want, shape):
+    import torch
+    torch.cuda.synchronize()
+    err = int((got.long() - want.long()).abs().max())
+    if err != 0:
+        raise AssertionError(f"{name} differs from its plain version at "
+                             f"{shape}: max |diff| {err}")
+    return err
+
+
+def _ntt_case(name, tables, B, L, gen, reps, limb_map=None):
+    """K1 or K2 on (B, L, n) rows of the first L limbs; with `limb_map`
+    (K1 only) on the (D, B, L, n) digit stack of a decomposition, rows of
+    entry < 0 skipped (and left out of the comparison)."""
     import torch
     from fhe_linformer_tpu_torch.ops import ntt, ntt_cuda
     n = tables.n
-    limbs = tuple(range(L))
-    x = random_residues((B, L, n), tables.qs[:L], gen, "cuda")
-    out = {}
-    for name, kern, plain in (("ntt_fwd", ntt_cuda.fwd, ntt.fwd_plain),
-                              ("ntt_inv", ntt_cuda.inv, ntt.inv_plain)):
-        got = kern(x, tables, limbs)
-        want = plain(x, tables, limbs)
-        torch.cuda.synchronize()
-        err = int((got.long() - want.long()).abs().max())
-        if err != 0:
-            raise AssertionError(f"{name} differs from its plain version at "
-                                 f"{(B, L, n)}: max |diff| {err}")
-        rows = B * L
-        mults = rows * (n // 2) * (n.bit_length() - 1) * 3 + \
-            (rows * n * 3 if name == "ntt_inv" else 0)
-        nbytes = rows * n * 8 + L * n * 8
-        b_ms, b_by = bound(nbytes, mults)
-        out[name] = {"shape": [B, L, n], "max_abs_err": err,
-                     "ms": cuda_ms(lambda: kern(x, tables, limbs), reps),
-                     "plain_ms": cuda_ms(lambda: plain(x, tables, limbs), 3, 1),
-                     "bound_ms": b_ms, "bound_by": b_by}
-    return out
+    if limb_map is None:
+        limbs = tuple(range(L))
+        x = random_residues((B, L, n), tables.qs[:L], gen, "cuda")
+        kern, plain = ((ntt_cuda.fwd, ntt.fwd_plain) if name == "ntt_fwd"
+                       else (ntt_cuda.inv, ntt.inv_plain))
+        run = lambda: kern(x, tables, limbs)
+        run_plain = lambda: plain(x, tables, limbs)
+        shape, active = [B, L, n], B * L
+    else:
+        D, L = len(limb_map), len(limb_map[0])
+        col = [max(row[i] for row in limb_map) for i in range(L)]
+        x = random_residues((D, B, L, n), [tables.qs[i] for i in col], gen,
+                            "cuda")
+        keep = torch.tensor([[v >= 0 for v in row] for row in limb_map],
+                            device="cuda")[:, None, :, None]
+        run = lambda: ntt_cuda.fwd(x, tables, limb_map)
+
+        def run_plain():
+            out = torch.zeros_like(x)
+            for d, row in enumerate(limb_map):
+                sel = [i for i, v in enumerate(row) if v >= 0]
+                out[d][..., sel, :] = ntt.fwd_plain(
+                    x[d][..., sel, :], tables, [row[i] for i in sel])
+            return out
+        shape = [D, B, L, n]
+        active = B * sum(v >= 0 for row in limb_map for v in row)
+    got = run()
+    if limb_map is not None:
+        got = torch.where(keep, got, 0)
+    err = _held(name, got, run_plain(), shape)
+    mults = active * (n // 2) * (n.bit_length() - 1) * 3 + \
+        (active * n * 3 if name == "ntt_inv" else 0)
+    nbytes = active * n * 8 + L * n * 8
+    b_ms, b_by = bound(nbytes, mults)
+    return {"kernel": name, "shape": shape, "active_rows": active,
+            "max_abs_err": err, "ms": cuda_ms(run, reps, inner=10),
+            "plain_ms": cuda_ms(run_plain, 3, 1),
+            "bound_ms": b_ms, "bound_by": b_by}
 
 
 def _bc_case(bc, g_valid, B, prefolded, gen, reps):
-    import torch
     from fhe_linformer_tpu_torch.ops import basecvt
     n = 1 << LOG2N
     qs = bc.gq[:g_valid].long().cpu().tolist()
     x = random_residues((B, g_valid, n), qs, gen, "cuda")
-    got = basecvt.base_convert_cuda(x, bc, prefolded)
-    want = basecvt.base_convert_plain(x, bc, prefolded)
-    torch.cuda.synchronize()
-    err = int((got.long() - want.long()).abs().max())
-    if err != 0:
-        raise AssertionError(f"base_convert differs from its plain version "
-                             f"at B={B}, g={g_valid}, nd={bc.nd}: {err}")
+    if prefolded:        # the mod-down hands in w = x * fold mod p
+        f = bc.fold[:g_valid, None].long()
+        x = (x.long() * f % bc.gq[:g_valid, None].long()).int()
     tgt = bc.q_out.shape[0]
-    mults = B * n * ((0 if prefolded else 3 * g_valid) + 2 * g_valid * tgt)
+    err = _held("base_convert", basecvt.base_convert_cuda(x, bc, prefolded),
+                basecvt.base_convert_plain(x, bc, prefolded),
+                (B, g_valid, bc.nd, tgt))
+    # tensor-core operations: one (4 tgt) x (4 alpha_j) product per digit
+    # and coefficient, over the digit's own sources (g_valid in all); CUDA
+    # core multiplies: the fold (3 per source) and the epilogue's two Shoup
+    # steps (6 per output)
+    tc_ops = 2 * B * n * (4 * tgt) * (4 * g_valid)
+    muls = B * n * ((0 if prefolded else 3 * g_valid) + 6 * bc.nd * tgt)
     nbytes = 4 * B * n * (g_valid + bc.nd * tgt)
-    b_ms, b_by = bound(nbytes, mults)
-    return {"B": B, "G": bc.nd * bc.alpha, "g_valid": g_valid, "nd": bc.nd,
-            "tgt": tgt, "prefolded": prefolded, "max_abs_err": err,
+    b_ms, b_by = bound(nbytes, muls, tc_ops)
+    return {"kernel": "base_convert", "B": B, "G": bc.nd * bc.alpha,
+            "alpha": bc.alpha, "g_valid": g_valid, "nd": bc.nd, "tgt": tgt,
+            "prefolded": prefolded, "max_abs_err": err,
             "ms": cuda_ms(lambda: basecvt.base_convert_cuda(x, bc, prefolded),
-                          reps),
+                          reps, inner=10),
             "plain_ms": cuda_ms(
                 lambda: basecvt.base_convert_plain(x, bc, prefolded), 3, 1),
             "bound_ms": b_ms, "bound_by": b_by}
 
 
 def phase_kernels(ctx):
-    """Each kernel against its plain version on the card.  Returns the
-    main-shape numbers per kernel for the final `kernels` line."""
+    """Each kernel against its plain version on the card, at the shapes the
+    main path sends it.  Returns the main-shape numbers per kernel for the
+    final `kernels` line."""
     import torch
     from fhe_linformer_tpu_torch.ops.ntt import NttTables
     gen = torch.Generator(device="cuda")
     gen.manual_seed(1)
     L = ctx.num_q + ctx.k_sp                       # 79: the key switch's basis
-    main = _ntt_case(ctx.ntt, 4, L, gen, reps=30)
-    small = _ntt_case(NttTables(1 << 11, ctx.basis[:L], "cuda"), 4, L, gen,
-                      reps=30)
     nl = ctx.num_q
     ks = ctx.ks_tables(nl)
-    bc_rows = [_bc_case(ks.bc, nl, 4, False, gen, reps=30),
-               _bc_case(ks.bc, nl, 32, False, gen, reps=20),
-               _bc_case(ks.md, ctx.k_sp, 4, True, gen, reps=30)]
-    emit({"phase": "kernels", "ntt_2^15": main, "ntt_2^11": small,
-          "base_convert": bc_rows})
-    return {"ntt_fwd": main["ntt_fwd"], "ntt_inv": main["ntt_inv"],
-            "base_convert": bc_rows[0]}
+    # the forward's key switches: batch 8 (HEAVY_CHUNK) from level 57 down,
+    # mod-downs of both halves (batch 16); low levels reach partly filled
+    # last digit groups at batch 1 (phase 4's launch_shapes)
+    fw = ctx.ks_tables(57)
+    low = ctx.ks_tables(22)              # digits of 20 + 2 limbs, tgt 42
+    small = NttTables(1 << 11, ctx.basis[:L], "cuda")
+    rows = [_ntt_case("ntt_fwd", ctx.ntt, 4, L, gen, 20),
+            _ntt_case("ntt_inv", ctx.ntt, 4, L, gen, 20),
+            _ntt_case("ntt_fwd", ctx.ntt, 8, None, gen, 10,
+                      limb_map=fw.dig_limbs),
+            _ntt_case("ntt_fwd", small, 4, L, gen, 20),
+            _ntt_case("ntt_inv", small, 4, L, gen, 20),
+            _bc_case(ks.bc, nl, 4, False, gen, 20),
+            _bc_case(fw.bc, 57, 8, False, gen, 20),
+            _bc_case(low.bc, 22, 1, False, gen, 20),
+            _bc_case(ks.bc, nl, 32, False, gen, 10),
+            _bc_case(fw.md, ctx.k_sp, MODDOWN_BATCH, True, gen, 20)]
+    for r in rows:
+        emit({"phase": "kernels", **r})
+    return {"ntt_fwd": rows[0], "ntt_inv": rows[1], "base_convert": rows[5]}
 
 
 # ---------------------------------------------------------------------------
@@ -292,6 +368,42 @@ def _device_breakdown(run):
             "top_other": [{"name": k, **v} for k, v in top]}
 
 
+@contextlib.contextmanager
+def _shape_census():
+    """Counts each kernel wrapper's calls by shape while the block runs:
+    K1/K2 by (rows, limb-map entries), K3 by (batch, g_valid, nd, tgt,
+    prefolded).  Yields {kernel: [[shape, calls], ...]}, filled on exit."""
+    from collections import Counter
+    from fhe_linformer_tpu_torch.ops import basecvt, ntt_cuda
+    from fhe_linformer_tpu_torch.ops.ntt import is_limb_map
+    seen = {k: Counter() for k in ("ntt_fwd", "ntt_inv", "base_convert")}
+    orig = (ntt_cuda.fwd, ntt_cuda.inv, basecvt.base_convert_cuda)
+
+    def fwd(x, t, limbs):
+        seen["ntt_fwd"][(x.numel() // t.n,
+                         len(limbs) if is_limb_map(limbs) else 1)] += 1
+        return orig[0](x, t, limbs)
+
+    def inv(x, t, limbs):
+        seen["ntt_inv"][(x.numel() // t.n, 1)] += 1
+        return orig[1](x, t, limbs)
+
+    def bc(x, tables, prefolded=False):
+        g, n = x.shape[-2:]
+        seen["base_convert"][(x.numel() // (g * n), g, tables.nd,
+                              tables.q_out.shape[0], prefolded)] += 1
+        return orig[2](x, tables, prefolded)
+
+    out: dict = {}
+    ntt_cuda.fwd, ntt_cuda.inv, basecvt.base_convert_cuda = fwd, inv, bc
+    try:
+        yield out
+    finally:
+        ntt_cuda.fwd, ntt_cuda.inv, basecvt.base_convert_cuda = orig
+        for k, c in seen.items():
+            out[k] = [[list(shape), calls] for shape, calls in c.most_common()]
+
+
 def phase_forward():
     """Answers each request twice (caches cold, then warm) and checks the
     logits; returns the kernel launch counts of those answers."""
@@ -379,15 +491,25 @@ def phase_forward():
                 raise AssertionError(f"S={S}: logits {logits} vs golden "
                                      f"{want} (max err {err})")
     launches = dict(KERNEL_LAUNCHES)
+    with _shape_census() as shapes:
+        trace = _device_breakdown(lambda: answer(embs[0], {}))
     emit({"phase": "forward_trace", "S": sizes[0], "plaintext_caches": "warm",
-          **_device_breakdown(lambda: answer(embs[0], {}))})
+          **trace, "launch_shapes": shapes})
     return launches
 
 
 # ---------------------------------------------------------------------------
 
 
-def main() -> int:
+PHASES = ("card", "kernels", "keyswitch", "forward")
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--only", default=",".join(PHASES),
+                    help="comma-separated phases to run (default: all, "
+                         "which alone prints the result line)")
+    only = ap.parse_args(argv).only.split(",")
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke.py needs a CUDA card (torch.cuda.is_available() "
@@ -397,10 +519,16 @@ def main() -> int:
     from fhe_linformer_tpu_torch.ckks.context import Context
     from fhe_linformer_tpu_torch.config import get
     torch.manual_seed(0)
-    phase_card()
-    main_shapes = phase_kernels(Context(get("linformer-boot-w").ckks))
-    phase_keyswitch()
-    launches = phase_forward()
+    if "card" in only:
+        phase_card()
+    if "kernels" in only:
+        main_shapes = phase_kernels(Context(get("linformer-boot-w").ckks))
+    if "keyswitch" in only:
+        phase_keyswitch()
+    if "forward" in only:
+        launches = phase_forward()
+    if set(only) != set(PHASES):
+        return 0
     missing = [k for k, v in launches.items() if v <= 0]
     if missing:
         raise AssertionError(f"kernels never launched on the main path: "

@@ -20,6 +20,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from ..ops.basecvt import plane_fragments
 from ..ops.modarith import shoup_precompute
 from ..ops.ntt import NttTables
 from ..primes import ntt_primes, scaling_primes
@@ -73,7 +74,14 @@ def resolve_device(device=None) -> torch.device:
 @dataclass(frozen=True)
 class BCTables:
     """Fused base-conversion tables (ops/basecvt.py): source rows cover nd
-    digit groups of alpha limbs (zero fold / unit prime on pad rows)."""
+    digit groups of alpha limbs (zero fold / unit prime on pad rows).
+
+    `planes` and `rowc` are kernel K3's: the conversion matrix expanded to
+    C[j, p, t, e2] = conv[j alpha + t, p] * 2**(8 e2) mod p, split into four
+    balanced s8 planes C_e and laid out as the A fragments of
+    mma.m16n8k32 (`ops.basecvt.plane_fragments`); `rowc` holds per target
+    row the prime, bias (the least multiple of p >= 2**30),
+    sh1 = floor(2**32 / p), p16 = 2**16 mod p and its Shoup companion."""
     nd: int
     alpha: int
     fold: torch.Tensor        # (G,) fold constant per source row
@@ -81,7 +89,8 @@ class BCTables:
     gq: torch.Tensor          # (G,) source primes (1 on pad rows)
     conv: torch.Tensor        # (G, tgt) (Qhat/q_t) mod p
     q_out: torch.Tensor       # (tgt,) target primes
-    q_inv: torch.Tensor       # (tgt,) int64 floor(2**64 / p) (uint64 bits)
+    planes: torch.Tensor      # (nd, RB, 2, KS, 32, 4) words of 4 s8
+    rowc: torch.Tensor        # (5, tgt) q, bias, sh1, p16, p16_s (uint32 bits)
 
 
 @dataclass(frozen=True)
@@ -92,7 +101,7 @@ class LevelKS:
     act_idx: tuple
     sp_idx: tuple
     groups: tuple             # active limbs of each digit (contiguous runs)
-    comp_idx: tuple           # per digit: tgt_idx minus its own group
+    dig_limbs: tuple          # per digit: tgt_idx, -1 at its own group
     q_act: torch.Tensor       # (nl, 1)
     q_tgt: torch.Tensor       # (nl + k, 1)
     q_sp: torch.Tensor        # (k, 1)
@@ -192,12 +201,18 @@ class Context:
 
     def _bc(self, nd, alpha, fold, gq, conv, q_out) -> BCTables:
         i32 = lambda a: self.tensor(np.asarray(a, np.int64).astype(np.int32))
-        q_inv = np.asarray([(1 << 64) // int(p) for p in q_out], np.uint64)
+        u32 = lambda a: self.tensor(np.ascontiguousarray(
+            np.asarray(a).astype(np.uint32)).view(np.int32))
+        q = np.asarray(q_out, np.int64)
+        p16 = (1 << 16) % q
+        rowc = np.stack([q, ((1 << 30) // q + 1) * q, (1 << 32) // q, p16,
+                         shoup_precompute(p16, q)])
+        assert rowc[1].max() + (1 << 30) < (1 << 32)
         return BCTables(
             nd=nd, alpha=alpha, fold=i32(fold),
-            fold_s=self.tensor(shoup_precompute(fold, gq).view(np.int32)),
+            fold_s=u32(shoup_precompute(fold, gq)),
             gq=i32(gq), conv=i32(conv), q_out=i32(q_out),
-            q_inv=self.tensor(q_inv.view(np.int64)))
+            planes=u32(plane_fragments(conv, q, nd, alpha)), rowc=u32(rowc))
 
     def ks_tables(self, nl: int) -> LevelKS:
         if nl in self._ks:
@@ -206,7 +221,7 @@ class Context:
         tgt_primes = [self.basis[i] for i in tgt_idx]
         ntgt = len(tgt_primes)
         P = _prod(self.ps)
-        groups, comp_idx = [], []
+        groups, dig_limbs = [], []
         fold_rows, gq_rows, conv_rows = [], [], []
         own = np.empty(nl, np.int64)
         for g_full in self.digit_groups_full():
@@ -228,7 +243,7 @@ class Context:
             gq_rows += [1] * pad
             conv_rows += [[0] * ntgt] * pad
             groups.append(g)
-            comp_idx.append(tuple(i for i in tgt_idx if i not in g))
+            dig_limbs.append(tuple(-1 if i in g else i for i in tgt_idx))
         bc = self._bc(len(groups), self.alpha, fold_rows, gq_rows,
                       conv_rows, tgt_primes)
         # mod-down tables: P -> active q basis
@@ -248,7 +263,7 @@ class Context:
         sp_idx = tuple(range(self.num_q, self.num_q + self.k_sp))
         lk = LevelKS(
             nl=nl, tgt_idx=tgt_idx, act_idx=act_idx, sp_idx=sp_idx,
-            groups=tuple(groups), comp_idx=tuple(comp_idx),
+            groups=tuple(groups), dig_limbs=tuple(dig_limbs),
             q_act=self.mod(act_idx), q_tgt=self.mod(tgt_idx),
             q_sp=self.mod(sp_idx),
             pfold=col(pfold),

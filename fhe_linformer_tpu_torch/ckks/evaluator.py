@@ -648,17 +648,11 @@ def _ks_decompose(ctx: Context, cx_coeff, ks: LevelKS, cx_eval):
     stack (nd, ..., nl + k, N).  Digit j's rows at its own group limbs skip
     the NTT: fast base conversion is exact at the source primes, so those
     rows are F_j^-1 * cx_eval."""
-    y_all = base_convert(cx_coeff, ks.bc)
-    own_e = mulmod(cx_eval, ks.own, ks.q_act)
-    outs = []
+    y = ntt.fwd(base_convert(cx_coeff, ks.bc), ctx.ntt, ks.dig_limbs)
+    own_e = mulmod(cx_eval, ks.own, ks.q_act)      # the rows fwd skipped
     for j, g in enumerate(ks.groups):
-        lo, hi = g[0], g[-1] + 1
-        rows = y_all[j]
-        z = ntt.fwd(torch.cat([rows[..., :lo, :], rows[..., hi:, :]], -2),
-                    ctx.ntt, ks.comp_idx[j])
-        outs.append(torch.cat([z[..., :lo, :], own_e[..., lo:hi, :],
-                               z[..., lo:, :]], -2))
-    return torch.stack(outs)
+        y[j, ..., g[0]:g[-1] + 1, :] = own_e[..., g[0]:g[-1] + 1, :]
+    return y
 
 
 def _hoist_decompose(ctx: Context, c1, ks: LevelKS):

@@ -2,8 +2,9 @@
 
 Each `csrc/<name>.cu` has a plain C interface (no PyTorch headers), so one
 nvcc call builds it in seconds.  Libraries go to `build/torch_kernels/`
-beside the package, named by a hash of their source, at first use; `build`
-starts one nvcc per missing source, all at once, and waits for them.
+beside the package, named by a hash of their source and the shared
+headers, at first use; `build` starts one nvcc per missing source, all at
+once, and waits for them.
 """
 
 from __future__ import annotations
@@ -36,8 +37,12 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    digest = hashlib.sha256((_CSRC / f"{name}.cu").read_bytes()).hexdigest()
-    return _BUILD / f"lib{name}-{digest[:12]}.so"
+    """Named by a hash of the source and every shared `csrc/*.cuh` header,
+    so an edit to either rebuilds."""
+    h = hashlib.sha256((_CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(_CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    return _BUILD / f"lib{name}-{h.hexdigest()[:12]}.so"
 
 
 def build(names=SOURCES) -> dict[str, dict]:

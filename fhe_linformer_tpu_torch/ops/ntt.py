@@ -6,11 +6,13 @@ natural-order evaluations X[k] = x(psi^(2k+1)), and the inverse returns
 coefficient order.  An exact NTT with the same psi and output order is
 unique, so any correct algorithm matches the TPU's four-step int8 matmuls.
 
-Algorithm (shared by the plain version here and the CUDA kernels K1/K2 in
-`csrc/ntt.cu`): forward is radix-2 Cooley-Tukey over bit-reversed powers
-of psi, natural-order input to bit-reversed output, with the bit-reversal
-folded into the read-out; inverse is Gentleman-Sande over bit-reversed
-powers of psi^-1 from bit-reversed input, then a multiply by n^-1.
+Algorithm (the butterfly network of the plain version here and of the CUDA
+kernels K1/K2 in `csrc/ntt.cu`): forward is radix-2 Cooley-Tukey over
+bit-reversed powers of psi, natural-order input to bit-reversed output,
+with the bit-reversal folded into the read-out; inverse is Gentleman-Sande
+over bit-reversed powers of psi^-1 from bit-reversed input, then a
+multiply by n^-1.  K1 runs the same butterflies in a different order
+(`ntt_cuda.fwd_phased_plain` mirrors its schedule).
 
 `fwd` / `inv` take a CUDA tensor to the kernels (`ntt_cuda`) and a CPU
 tensor to the plain int64 version below.  `limbs` names, for each row of
@@ -87,6 +89,8 @@ class NttTables:
         self.n_inv_s = dev(_as_i32(shoup_precompute(ninv, qcol[:, 0])))
         self.brev = dev(brv)
         self._idx: dict[tuple, torch.Tensor] = {}
+        self._maps: dict[tuple, torch.Tensor] = {}
+        self._rows: dict[tuple, torch.Tensor] = {}
 
     def index(self, limbs) -> torch.Tensor:
         """int64 device tensor of basis indices, cached per limb tuple."""
@@ -96,13 +100,47 @@ class NttTables:
                                           device=self.device)
         return self._idx[key]
 
+    def limb_map(self, limbs) -> torch.Tensor:
+        """(D, L) int32 device tensor of basis indices for kernel K1: one
+        row for a limb tuple, one per leading-axis entry for a limb map."""
+        key = tuple(map(tuple, limbs)) if is_limb_map(limbs) \
+            else (tuple(limbs),)
+        if key not in self._maps:
+            self._maps[key] = torch.tensor(key, dtype=torch.int32,
+                                           device=self.device)
+        return self._maps[key]
+
+    def row_limbs(self, limbs, rows: int) -> torch.Tensor:
+        """(rows,) int32 basis index of every row of a (..., L, n) tensor,
+        for kernel K2; cached per (limbs, rows)."""
+        key = (tuple(limbs), rows)
+        if key not in self._rows:
+            self._rows[key] = self.index(limbs).int().repeat(
+                rows // len(limbs))
+        return self._rows[key]
+
+
+def is_limb_map(limbs) -> bool:
+    return len(limbs) > 0 and isinstance(limbs[0], (tuple, list))
+
 
 def fwd(x: torch.Tensor, t: NttTables, limbs) -> torch.Tensor:
-    """(..., L, n) int32 coefficients -> natural-order evaluations."""
+    """(..., L, n) int32 coefficients -> natural-order evaluations.
+
+    `limbs` may also be a limb map: one tuple of L basis indices per entry
+    of x's leading axis, where an index < 0 skips its rows (left unset in
+    the output: zero here, unwritten by the kernel)."""
     if x.is_cuda:
         from . import ntt_cuda
         return ntt_cuda.fwd(x.contiguous(), t, limbs)
-    return fwd_plain(x, t, limbs)
+    if not is_limb_map(limbs):
+        return fwd_plain(x, t, limbs)
+    out = torch.zeros_like(x)
+    for d, row in enumerate(limbs):
+        sel = [i for i, limb in enumerate(row) if limb >= 0]
+        out[d][..., sel, :] = fwd_plain(x[d][..., sel, :], t,
+                                        [row[i] for i in sel])
+    return out
 
 
 def inv(x: torch.Tensor, t: NttTables, limbs) -> torch.Tensor:

@@ -4,7 +4,9 @@ in interpret mode (`ops.ntt_pallas.fwd/inv`), bit-exact, at n = 2^11 and
 at the production ring n = 2^15 (L = 3 limbs, batch 2).
 
 The port's CUDA kernels K1/K2 compute the same butterflies as the plain
-version tested here; chip_smoke.py holds them against it on the card."""
+version tested here; chip_smoke.py holds them against it on the card.
+`ntt_cuda.fwd_phased_plain` repeats K1's schedule (thread/element mapping,
+twiddle indices, exchanges) in int64 and is held against both here."""
 
 import numpy as np
 import jax.numpy as jnp
@@ -71,3 +73,45 @@ def test_cuda_wrapper_refuses_cpu_tensor(case):
     _, tables, x, _ = case
     with pytest.raises(ValueError, match="CUDA tensor"):
         ntt_cuda.fwd(torch.from_numpy(x.astype(np.int32)), tables, (0, 1, 2))
+
+
+def test_k1_schedule_mirror(case):
+    """K1's phased schedule (two blocks per row, register phases, skewed
+    exchanges, bit-reversed store) mirrored in int64 equals the plain
+    transform, and at 2^11 the Pallas kernel too."""
+    jctx, tables, x, want = case
+    xt = torch.from_numpy(x.astype(np.int32))
+    got = ntt_cuda.fwd_phased_plain(xt, tables, (0, 1, 2))
+    np.testing.assert_array_equal(got.numpy(),
+                                  ntt.fwd_plain(xt, tables, (0, 1, 2)).numpy())
+    if tables.n == 1 << 11:
+        pallas = ntt_pallas.fwd(jnp.asarray(x), jctx.full, interpret=True)
+        np.testing.assert_array_equal(got.numpy().astype(np.uint32),
+                                      np.asarray(pallas))
+
+
+def test_limb_map_skips_rows(case):
+    """A limb map transforms each leading-axis entry with its own limbs in
+    one call; entries < 0 leave their rows unset (zero on the CPU)."""
+    _, tables, x, want = case
+    xt = torch.from_numpy(np.stack([x, x[:, ::-1]]).astype(np.int32))
+    lmap = ((0, -1, 2), (-1, 1, 0))
+    got = ntt.fwd(xt, tables, lmap).numpy().astype(np.uint32)
+    np.testing.assert_array_equal(got[0][:, [0, 2]], want["fwd"][:, [0, 2]])
+    np.testing.assert_array_equal(got[1][:, 1], want["fwd"][:, 1])
+    np.testing.assert_array_equal(got[1][:, 2], want["fwd"][:, 0])
+    assert not got[0][:, 1].any() and not got[1][:, 0].any()
+
+
+def test_launch_tables_cached(case):
+    """The kernels' per-launch limb tables are built once per key."""
+    _, tables, _, _ = case
+    assert tables.limb_map((2, 0)) is tables.limb_map((2, 0))
+    assert tuple(tables.limb_map(((0, -1), (1, 2))).shape) == (2, 2)
+    rl = tables.row_limbs((2, 0), 6)
+    assert rl is tables.row_limbs((2, 0), 6)
+    assert rl.tolist() == [2, 0] * 3 and rl.dtype == torch.int32
+    with pytest.raises(ValueError, match="below K1"):
+        ntt_cuda.fwd_phased_plain(torch.zeros((1, 1 << 10), dtype=torch.int32),
+                                  ntt.NttTables(1 << 10, tables.qs[:1], "cpu"),
+                                  (0,))
