@@ -8,9 +8,10 @@ Phases, each printing one JSON line:
                 torch/CUDA versions, and the nvcc build of every kernel in
                 fhe_linformer_tpu_torch/csrc (with ptxas registers/spills)
   2. kernels  - each CUDA kernel against its plain PyTorch version on the
-                card at every shape the main path sends it: exact equality,
-                median time, the plain version's time, and the least time
-                the card could take (`bound`)
+                card at every shape the main path sends it (K2 through the
+                port's `ntt.inv`, on the limb slices it reads in place):
+                exact equality, median time, the plain version's time, and
+                the least time the card could take (`bound`)
   3. keyswitch - one Galois key switch at N = 2^15, 24 limbs, dnum 3,
                 batch 4: the yardstick for later speed work
   4. forward  - the block-major encrypted Linformer (d = 128, k_lin = 32,
@@ -20,7 +21,8 @@ Phases, each printing one JSON line:
                 time, key switches, kernel launches, and the decrypted
                 logits against the plaintext golden model; then one traced
                 warm S = 128 request (device time per kernel, idle share,
-                and the shapes each kernel was launched at)
+                and the shapes each kernel was launched at, with their
+                device time)
   5. the `kernels` line: every kernel with its launches during phase 4
 
 It ends with {"ok": true, "device": {...}}.  Any failure raises and exits
@@ -65,16 +67,20 @@ def emit(obj) -> None:
 
 def cuda_ms(fn, reps: int, warmup: int = 2, inner: int = 1) -> float:
     """Median milliseconds of one fn() call: `reps` samples, each timed by
-    CUDA events around `inner` back-to-back calls (so the host's launch
-    time hides behind the device's work when the kernel is short)."""
+    CUDA events around `inner` back-to-back calls.  Each sample is queued
+    behind a 1 ms device sleep, so the host has enqueued its calls before
+    the first runs and a short kernel's time is the device's, not the
+    host's launch time."""
     import torch
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
+    sleep_cycles = int(card_clock()[1] * 1e3)        # 1 ms at the max clock
     times = []
     for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
         stop = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(sleep_cycles)
         start.record()
         for _ in range(inner):
             fn()
@@ -157,20 +163,19 @@ def _held(name, got, want, shape):
     return err
 
 
-def _ntt_case(name, tables, B, L, gen, reps, limb_map=None):
-    """K1 or K2 on (B, L, n) rows of the first L limbs; with `limb_map`
-    (K1 only) on the (D, B, L, n) digit stack of a decomposition, rows of
-    entry < 0 skipped (and left out of the comparison)."""
+def _fwd_case(tables, B, L, gen, reps, limb_map=None):
+    """K1 on (B, L, n) rows of the first L limbs; with `limb_map` on the
+    (D, B, L, n) digit stack of a decomposition, rows of entry < 0 skipped
+    (and left out of the comparison)."""
     import torch
     from fhe_linformer_tpu_torch.ops import ntt, ntt_cuda
+    name = "ntt_fwd"
     n = tables.n
     if limb_map is None:
         limbs = tuple(range(L))
         x = random_residues((B, L, n), tables.qs[:L], gen, "cuda")
-        kern, plain = ((ntt_cuda.fwd, ntt.fwd_plain) if name == "ntt_fwd"
-                       else (ntt_cuda.inv, ntt.inv_plain))
-        run = lambda: kern(x, tables, limbs)
-        run_plain = lambda: plain(x, tables, limbs)
+        run = lambda: ntt_cuda.fwd(x, tables, limbs)
+        run_plain = lambda: ntt.fwd_plain(x, tables, limbs)
         shape, active = [B, L, n], B * L
     else:
         D, L = len(limb_map), len(limb_map[0])
@@ -194,13 +199,52 @@ def _ntt_case(name, tables, B, L, gen, reps, limb_map=None):
     if limb_map is not None:
         got = torch.where(keep, got, 0)
     err = _held(name, got, run_plain(), shape)
-    mults = active * (n // 2) * (n.bit_length() - 1) * 3 + \
-        (active * n * 3 if name == "ntt_inv" else 0)
+    # 3 multiplies per Shoup butterfly; rows in and out, tables read once
+    mults = active * (n // 2) * (n.bit_length() - 1) * 3
     nbytes = active * n * 8 + L * n * 8
     b_ms, b_by = bound(nbytes, mults)
     return {"kernel": name, "shape": shape, "active_rows": active,
             "max_abs_err": err, "ms": cuda_ms(run, reps, inner=10),
             "plain_ms": cuda_ms(run_plain, 3, 1),
+            "bound_ms": b_ms, "bound_by": b_by}
+
+
+def _inv_case(tables, lead, limbs, start, gen, reps):
+    """K2 through the port's `ntt.inv`, as the evaluator calls it, on the
+    limb slice x[..., start:, :] of a (*lead, len(limbs), n) tensor (the
+    rescale's top limb, the mod-down's special limbs; start 0: the whole
+    tensor).  `read_in_place`: the kernel's wrapper got the slice itself,
+    not a copy."""
+    from fhe_linformer_tpu_torch.ops import ntt, ntt_cuda
+    n = tables.n
+    full = random_residues(tuple(lead) + (len(limbs), n),
+                           [tables.qs[i] for i in limbs], gen, "cuda")
+    x = full[..., start:, :]
+    sub = tuple(limbs[start:])
+    kernel, seen = ntt_cuda.inv, []
+
+    def spy(y, t, lim):
+        seen.append(y.data_ptr() == x.data_ptr() and y.stride() == x.stride())
+        return kernel(y, t, lim)
+    ntt_cuda.inv = spy
+    try:
+        got = ntt.inv(x, tables, sub)
+    finally:
+        ntt_cuda.inv = kernel
+    shape = list(x.shape)
+    err = _held("ntt_inv", got, ntt.inv_plain(x, tables, sub), shape)
+    active, L = x.numel() // n, len(sub)
+    # the Shoup butterflies of all but the last stage, then n^-1 folded
+    # into the last stage's two outputs: 3 multiplies each
+    mults = active * ((n // 2) * (n.bit_length() - 2) + n) * 3
+    nbytes = active * n * 8 + L * n * 8
+    b_ms, b_by = bound(nbytes, mults)
+    return {"kernel": "ntt_inv", "shape": shape,
+            "source": list(full.shape), "limbs_from": start,
+            "active_rows": active, "read_in_place": seen == [True],
+            "max_abs_err": err,
+            "ms": cuda_ms(lambda: ntt.inv(x, tables, sub), reps, inner=10),
+            "plain_ms": cuda_ms(lambda: ntt.inv_plain(x, tables, sub), 3, 1),
             "bound_ms": b_ms, "bound_by": b_by}
 
 
@@ -237,7 +281,7 @@ def _bc_case(bc, g_valid, B, prefolded, gen, reps):
 def phase_kernels(ctx):
     """Each kernel against its plain version on the card, at the shapes the
     main path sends it.  Returns the main-shape numbers per kernel for the
-    final `kernels` line."""
+    final `kernels` line, and every row."""
     import torch
     from fhe_linformer_tpu_torch.ops.ntt import NttTables
     gen = torch.Generator(device="cuda")
@@ -251,20 +295,34 @@ def phase_kernels(ctx):
     fw = ctx.ks_tables(57)
     low = ctx.ks_tables(22)              # digits of 20 + 2 limbs, tgt 42
     small = NttTables(1 << 11, ctx.basis[:L], "cuda")
-    rows = [_ntt_case("ntt_fwd", ctx.ntt, 4, L, gen, 20),
-            _ntt_case("ntt_inv", ctx.ntt, 4, L, gen, 20),
-            _ntt_case("ntt_fwd", ctx.ntt, 8, None, gen, 10,
-                      limb_map=fw.dig_limbs),
-            _ntt_case("ntt_fwd", small, 4, L, gen, 20),
-            _ntt_case("ntt_inv", small, 4, L, gen, 20),
+    full = tuple(range(L))
+    act57, ext57 = fw.act_idx, fw.act_idx + fw.sp_idx
+    rows = [_fwd_case(ctx.ntt, 4, L, gen, 20),
+            _inv_case(ctx.ntt, (4,), full, 0, gen, 20),
+            _fwd_case(ctx.ntt, 8, None, gen, 10, limb_map=fw.dig_limbs),
+            _fwd_case(small, 4, L, gen, 20),
+            _inv_case(small, (4,), full, 0, gen, 20),
+            # K2 on the forward (phase 4's launch_shapes): a batch-8 key
+            # switch at level 57 (the decomposition's input, the mod-down's
+            # special limbs of both halves), the mod-down of 1 ciphertext,
+            # the rescales of 1, 4 and 8 ciphertexts (the top limb of c0
+            # and c1)
+            _inv_case(ctx.ntt, (8,), act57, 0, gen, 20),
+            _inv_case(ctx.ntt, (2, 8), ext57, 57, gen, 20),
+            _inv_case(ctx.ntt, (2, 1), ext57, 57, gen, 20),
+            _inv_case(ctx.ntt, (2, 1), act57, 56, gen, 20),
+            _inv_case(ctx.ntt, (2, 4), act57, 56, gen, 20),
+            _inv_case(ctx.ntt, (2, 8), act57, 56, gen, 20),
             _bc_case(ks.bc, nl, 4, False, gen, 20),
             _bc_case(fw.bc, 57, 8, False, gen, 20),
             _bc_case(low.bc, 22, 1, False, gen, 20),
             _bc_case(ks.bc, nl, 32, False, gen, 10),
             _bc_case(fw.md, ctx.k_sp, MODDOWN_BATCH, True, gen, 20)]
+    main = {}
     for r in rows:
         emit({"phase": "kernels", **r})
-    return {"ntt_fwd": rows[0], "ntt_inv": rows[1], "base_convert": rows[5]}
+        main.setdefault(r["kernel"], r)       # each kernel's first case
+    return main, rows
 
 
 # ---------------------------------------------------------------------------
@@ -335,7 +393,8 @@ def _calibrated(golden, w, embs):
 def _device_breakdown(run):
     """One traced call of run() under torch.profiler: device time per
     kernel of the port, the other kernels' time (the plain torch ops), and
-    the share of the wall time the device sat idle."""
+    the share of the wall time the device sat idle.  Also returns each
+    port kernel's launch times (ms) in the order they ran."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -348,6 +407,7 @@ def _device_breakdown(run):
     ours = {k: {"ms": 0.0, "count": 0}
             for k in ("ntt_fwd", "ntt_inv", "base_convert")}
     other: dict = {}
+    runs = {k: [] for k in ours}
     for e in prof.events():
         if e.device_type != DeviceType.CUDA:
             continue
@@ -357,6 +417,8 @@ def _device_breakdown(run):
             e.name[:100], {"ms": 0.0, "count": 0})
         row["ms"] += ms
         row["count"] += 1
+        if key:
+            runs[key].append((e.time_range.start, ms))
     busy = sum(r["ms"] for r in ours.values()) + \
         sum(r["ms"] for r in other.values())
     top = sorted(other.items(), key=lambda kv: -kv[1]["ms"])[:10]
@@ -365,43 +427,58 @@ def _device_breakdown(run):
             "port_kernels": ours,
             "other_kernels_ms": sum(r["ms"] for r in other.values()),
             "other_kernel_launches": sum(r["count"] for r in other.values()),
-            "top_other": [{"name": k, **v} for k, v in top]}
+            "top_other": [{"name": k, **v} for k, v in top]}, \
+        {k: [ms for _, ms in sorted(v)] for k, v in runs.items()}
 
 
 @contextlib.contextmanager
 def _shape_census():
-    """Counts each kernel wrapper's calls by shape while the block runs:
-    K1/K2 by (rows, limb-map entries), K3 by (batch, g_valid, nd, tgt,
-    prefolded).  Yields {kernel: [[shape, calls], ...]}, filled on exit."""
-    from collections import Counter
+    """Records each kernel wrapper's calls by shape, in order, while the
+    block runs: K1 by (rows, limb-map entries), K2 by (rows, limbs), K3 by
+    (batch, g_valid, nd, tgt, prefolded).  Yields {kernel: [shape, ...]}."""
     from fhe_linformer_tpu_torch.ops import basecvt, ntt_cuda
     from fhe_linformer_tpu_torch.ops.ntt import is_limb_map
-    seen = {k: Counter() for k in ("ntt_fwd", "ntt_inv", "base_convert")}
+    seen = {k: [] for k in ("ntt_fwd", "ntt_inv", "base_convert")}
     orig = (ntt_cuda.fwd, ntt_cuda.inv, basecvt.base_convert_cuda)
 
     def fwd(x, t, limbs):
-        seen["ntt_fwd"][(x.numel() // t.n,
-                         len(limbs) if is_limb_map(limbs) else 1)] += 1
+        seen["ntt_fwd"].append((x.numel() // t.n,
+                                len(limbs) if is_limb_map(limbs) else 1))
         return orig[0](x, t, limbs)
 
     def inv(x, t, limbs):
-        seen["ntt_inv"][(x.numel() // t.n, 1)] += 1
+        seen["ntt_inv"].append((x.numel() // t.n, x.shape[-2]))
         return orig[1](x, t, limbs)
 
     def bc(x, tables, prefolded=False):
         g, n = x.shape[-2:]
-        seen["base_convert"][(x.numel() // (g * n), g, tables.nd,
-                              tables.q_out.shape[0], prefolded)] += 1
+        seen["base_convert"].append((x.numel() // (g * n), g, tables.nd,
+                                     tables.q_out.shape[0], prefolded))
         return orig[2](x, tables, prefolded)
 
-    out: dict = {}
     ntt_cuda.fwd, ntt_cuda.inv, basecvt.base_convert_cuda = fwd, inv, bc
     try:
-        yield out
+        yield seen
     finally:
         ntt_cuda.fwd, ntt_cuda.inv, basecvt.base_convert_cuda = orig
-        for k, c in seen.items():
-            out[k] = [[list(shape), calls] for shape, calls in c.most_common()]
+
+
+def _by_shape(calls, runs):
+    """{kernel: [[shape, launches, device ms], ...]}, most launches first:
+    the traced launches matched to the wrapper calls in order (device ms
+    None where the two counts differ)."""
+    out = {}
+    for k, seq in calls.items():
+        times = runs.get(k, [])
+        matched = len(times) == len(seq)
+        agg: dict = {}
+        for i, shape in enumerate(seq):
+            row = agg.setdefault(shape, [0, 0.0])
+            row[0] += 1
+            row[1] += times[i] if matched else 0.0
+        out[k] = [[list(s), n, ms if matched else None]
+                  for s, (n, ms) in sorted(agg.items(), key=lambda kv: -kv[1][0])]
+    return out
 
 
 def phase_forward():
@@ -491,10 +568,10 @@ def phase_forward():
                 raise AssertionError(f"S={S}: logits {logits} vs golden "
                                      f"{want} (max err {err})")
     launches = dict(KERNEL_LAUNCHES)
-    with _shape_census() as shapes:
-        trace = _device_breakdown(lambda: answer(embs[0], {}))
+    with _shape_census() as calls:
+        trace, runs = _device_breakdown(lambda: answer(embs[0], {}))
     emit({"phase": "forward_trace", "S": sizes[0], "plaintext_caches": "warm",
-          **trace, "launch_shapes": shapes})
+          **trace, "launch_shapes": _by_shape(calls, runs)})
     return launches
 
 
@@ -522,7 +599,8 @@ def main(argv=None) -> int:
     if "card" in only:
         phase_card()
     if "kernels" in only:
-        main_shapes = phase_kernels(Context(get("linformer-boot-w").ckks))
+        main_shapes, kernel_rows = phase_kernels(
+            Context(get("linformer-boot-w").ckks))
     if "keyswitch" in only:
         phase_keyswitch()
     if "forward" in only:
@@ -533,6 +611,10 @@ def main(argv=None) -> int:
     if missing:
         raise AssertionError(f"kernels never launched on the main path: "
                              f"{missing}")
+    copied = [r["shape"] for r in kernel_rows if r["kernel"] == "ntt_inv"
+              and not r["read_in_place"]]
+    if copied:
+        raise AssertionError(f"K2 got a copy, not the slice, at {copied}")
     emit({"kernels": [
         {"name": k, "route": "cuda", "source": SOURCES[k],
          "replaces": REPLACES[k], "launches": launches[k],

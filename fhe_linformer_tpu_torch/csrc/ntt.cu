@@ -1,53 +1,76 @@
 // K1 / K2: negacyclic NTT and inverse NTT of RNS residue rows (sm_90a).
 //
-// Replaces the Pallas kernels `_fwd_kernel` and `_inv_kernel` of the JAX
+// Replace the Pallas kernels `_fwd_kernel` and `_inv_kernel` of the JAX
 // package's ops/ntt_pallas.py (entries `fwd` and `inv`), which run the
 // transform as a four-step pair of int8 digit-plane matmuls on the TPU's
 // matrix unit.  Here both are butterfly networks on the CUDA cores: an exact
 // NTT with the same psi and output order is unique, so the results are
 // bit-identical.  Forward: Cooley-Tukey from natural order, the natural-order
 // evaluations X[k] = x(psi^(2k+1)) out.  Inverse: Gentleman-Sande from the
-// bit-reversed load, coefficient order out, times n^-1.  Every value stays
+// bit-reversed order, coefficient order out, times n^-1.  Every value stays
 // canonical (< q).
 //
 // What bounds them on the H100: a 2^15 row is 128 KB in and 128 KB out,
 // against 15 x 2^14 Shoup butterflies (3 32-bit multiplies each).  At the
 // card's 64 integer multiplies per clock per SM that is under half the
 // time the bytes take, so memory bounds both, provided no intermediate
-// leaves the SM and the SM never sits waiting on a load.
+// leaves the SM and the SM never sits waiting on a load.  Both kernels
+// therefore keep a row on chip from load to store, in registers between
+// two shared-memory exchanges, and run two blocks per SM so that one
+// computes while the other waits.
 //
-// K1 (`ntt_fwd_kernel`), register-resident radix-32 phases, two blocks per
-// row.  After the first stage (pairs at distance n/2) the two halves of a
-// row are independent transforms of n/2 points, so block c of a row's pair
-// computes stage 1 for its half straight from the loads (it reads both
-// halves of the row; its partner's read of the same row hits L2) and then
-// the n/2-point rest.  Thread tid of the n/64 threads holds 32 elements of
-// the half in registers, and the remaining log2(n) - 1 stages run as three
-// phases, each a radix-32 (or smaller) network in registers with no
-// barrier:
-//   phase 1  elements tid + (n/64)k: log2(n) - 11 stages,
-//   phase 2  elements 1024 warp + lane + 32k: 5 stages (distances 512 .. 32),
+// Shared shape: a row's two halves (H = n/2 points) go to two 512-thread
+// blocks (at 2^15; n/64 threads in general).  Thread tid holds 32
+// elements of its block's half in registers, and the half's log2(n) - 1
+// stages run as three phases, each a radix-32 (or smaller) network in
+// registers with no barrier:
+//   phase 1  elements tid + (n/64)k: log2(n) - 11 stages (distances H/2 ..
+//            1024),
+//   phase 2  elements 1024 warp + lane + 32k: 5 stages (512 .. 32),
 //   phase 3  elements 32g + k with g = bitrev(tid): 5 stages (16 .. 1).
 // In the half's own terms, stage group i of a stage with m groups takes the
-// table's twiddle (2 + c) m + i.  Two shared-memory exchanges sit between
-// the phases, both free of bank conflicts: the first writes each element
-// back where the thread held it and reads 32 consecutive words per warp;
-// the second stores 32-word line `line` at 32 line + (line >> (log2 n -
-// 11)), a skew of up to 31 words that puts the lines phase 3 reads together
-// in different banks.  Every exchange address is a per-thread base plus a
-// constant, so none of them holds a register (an XOR swizzle would need
-// 32).  Giving phase 3 the group g = bitrev(tid) makes the final bit
-// reversal a store with neighbouring lanes on neighbouring evaluations:
-// element 32g + k of half c lands at X[2 (bitrev5(k) n/64 + tid) + c] (the
-// partner block fills the other word of each pair).  The phase 1-2 twiddles
-// (n/64 entries, 4 KB at 2^15) sit in shared memory and are read as
-// warp-wide broadcasts; each thread loads its own 31 phase-3 twiddles once,
-// as 16-byte vectors, a few at a time (32 of the 64 registers hold data).
-// Three block barriers per half row.
+// table's twiddle (2 + c) m + i.  The exchanges between the phases go
+// through shared memory at address p + ((p >> 5) >> (log2 n - 11)) for
+// element p: a skew of up to 31 words that is the same across a warp in
+// phases 1 and 2 (consecutive words) and differs across a warp in phase 3,
+// so no exchange has a bank conflict; each address is a per-thread base
+// plus a constant, so none holds a register (an XOR swizzle would need
+// 32).  A phase-2 warp reads and writes only its own 1024 elements, so
+// between the phase-2 exchange's read and its write a __syncwarp is
+// enough.  Giving phase 3 the group g = bitrev(tid) makes the row's bit
+// reversal a global access with neighbouring lanes on neighbouring
+// words: element 32g + k of half c is word 2 (bitrev5(k) n/64 + tid) + c of
+// the natural-order evaluations.  The phase 1-2 twiddles (n/64 entries,
+// 4 KB at 2^15) sit in shared memory and are read as warp-wide broadcasts;
+// each thread loads its own 31 phase-3 twiddles once, as 16-byte vectors,
+// a few at a time (32 of the 64 registers hold data).
+//
+// K1 (`ntt_fwd_kernel`).  After the first stage (pairs at distance n/2)
+// the two halves are independent, so block c computes stage 1 for its
+// half straight from the loads (it reads both halves of the row; its
+// partner's read of the same row hits L2), then phases 1, 2 and 3, and
+// stores the evaluations of parity c.  Three block barriers.
+//
+// K2 (`ntt_inv_kernel`), the transpose.  Gentleman-Sande from the
+// bit-reversed order keeps the even evaluations in half 0 and the odd
+// ones in half 1 until the last stage, so block c loads the evaluations
+// of parity c (the pattern K1 stores) and runs phases 3, 2, 1 with the
+// inverse butterflies; only the last stage (distance n/2) pairs the
+// halves.  The row's two blocks are a thread block cluster of 2: each
+// writes the 16 elements per thread that its partner finishes into its
+// own shared memory (at addresses the same thread read, so no barrier
+// first), `cluster.sync()`, and reads the partner's words through
+// distributed shared memory.  Block c then writes outputs p of its quarter
+// and p + n/2:  y[p] = (u + v) n^-1,  y[p + n/2] = (u - v) w1 n^-1, with
+// n^-1 and w1 n^-1 as per-prime Shoup constants (w1 the last stage's
+// twiddle).  A second `cluster.sync()` keeps a block's shared memory alive
+// until its partner has read it.  Two block barriers, two cluster
+// barriers.  The source rows may be strided: `entry_stride` elements
+// between the (L, n) entries of the leading axis, so a limb slice such as
+// the rescale's top limb is read in place.
 //
 // Overlap: a block takes 512 threads x 64 registers at 2^15, half the
-// register file, so two blocks (two half rows) run on each SM and one
-// computes while the other waits on its loads or at a barrier.  Blocks go
+// register file, so two blocks (two half rows) run on each SM.  Blocks go
 // prime by prime (`RowMap`), so the rows of one prime share its twiddle
 // table in L2.
 //
@@ -55,18 +78,18 @@
 // axis, per entry of the leading axis, so the D digits of a key-switch
 // decomposition go in one launch; a negative entry skips its rows (their
 // output rows are left unwritten).  y must not alias x: both blocks of a
-// row read all of it.
-//
-// K2 (`ntt_inv_kernel`), one block per row, the row in shared memory across
-// all stages, radix 2.
+// row read it.
 //
 // C interface (loaded with ctypes): pointers to int32 tensors reinterpreted
 // as uint32; each entry returns cudaGetLastError() after the launch.
 
+#include <cooperative_groups.h>
 #include <cstdint>
 #include <cuda_runtime.h>
 
 #include "modarith.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -79,13 +102,22 @@ __host__ __device__ constexpr int brev5(int k) {
          ((k & 16) >> 4);
 }
 
+// Cooley-Tukey (INV false): x, y = x + w y, x - w y.
+// Gentleman-Sande (INV true): x, y = x + y, (x - y) w.
+template <bool INV>
 __device__ __forceinline__ void butterfly(uint32_t& x, uint32_t& y,
                                           uint32_t w, uint32_t ws,
                                           uint32_t q) {
   const uint32_t u = x;
-  const uint32_t v = shoup_mul(y, w, ws, q);
-  x = add_mod(u, v, q);
-  y = sub_mod(u, v, q);
+  if constexpr (INV) {
+    const uint32_t v = y;
+    x = add_mod(u, v, q);
+    y = shoup_mul(u + q - v, w, ws, q);   // a lazy input below 2q
+  } else {
+    const uint32_t v = shoup_mul(y, w, ws, q);
+    x = add_mod(u, v, q);
+    y = sub_mod(u, v, q);
+  }
 }
 
 // Keeps the compiler from hoisting the next twiddle loads above this
@@ -99,7 +131,7 @@ __device__ __forceinline__ void twiddle_fence() {
 // with a[k + (16 >> S)], and twiddle j = k >> (5 - S) of the stage is
 // (w[j], ws[j]), read from shared memory (the same address across a warp)
 // four at a time.
-template <int S>
+template <int S, bool INV>
 __device__ __forceinline__ void stage_shared(uint32_t (&a)[32],
                                              const uint32_t* w,
                                              const uint32_t* ws, uint32_t q) {
@@ -110,13 +142,13 @@ __device__ __forceinline__ void stage_shared(uint32_t (&a)[32],
     const uint32_t wj = w[j], sj = ws[j];
 #pragma unroll
     for (int kk = 0; kk < HK; ++kk)
-      butterfly(a[2 * HK * j + kk], a[2 * HK * j + kk + HK], wj, sj, q);
+      butterfly<INV>(a[2 * HK * j + kk], a[2 * HK * j + kk + HK], wj, sj, q);
   }
 }
 
 // The same stage with the thread's own 2^S twiddles, contiguous in device
 // memory, loaded once (16-byte vectors from S = 2 on).
-template <int S>
+template <int S, bool INV>
 __device__ __forceinline__ void stage_global(uint32_t (&a)[32],
                                              const uint32_t* __restrict__ w,
                                              const uint32_t* __restrict__ ws,
@@ -129,7 +161,8 @@ __device__ __forceinline__ void stage_global(uint32_t (&a)[32],
       const uint32_t wj = __ldg(w + j), sj = __ldg(ws + j);
 #pragma unroll
       for (int kk = 0; kk < HK; ++kk)
-        butterfly(a[2 * HK * j + kk], a[2 * HK * j + kk + HK], wj, sj, q);
+        butterfly<INV>(a[2 * HK * j + kk], a[2 * HK * j + kk + HK], wj, sj,
+                       q);
     }
   } else {
 #pragma unroll
@@ -144,8 +177,8 @@ __device__ __forceinline__ void stage_global(uint32_t (&a)[32],
         const int j = 4 * c + jj;
 #pragma unroll
         for (int kk = 0; kk < HK; ++kk)
-          butterfly(a[2 * HK * j + kk], a[2 * HK * j + kk + HK], wv[jj],
-                    sv[jj], q);
+          butterfly<INV>(a[2 * HK * j + kk], a[2 * HK * j + kk + HK], wv[jj],
+                         sv[jj], q);
       }
     }
   }
@@ -159,9 +192,48 @@ struct RowMap {
   int D, M, L;
   int work;              // D * M * L
 
-  __device__ int row(int i) const { return (i % (D * M)) * L + i / (D * M); }
+  __device__ int entry(int i) const { return i % (D * M); }
+  __device__ int pos(int i) const { return i / (D * M); }
+  __device__ int row(int i) const { return entry(i) * L + pos(i); }
   __device__ int limb(int i) const {
-    return limbs[(i % (D * M)) / M * L + i / (D * M)];
+    return limbs[entry(i) / M * L + pos(i)];
+  }
+};
+
+// The pieces of the block layout both kernels share (see the header).
+template <int LOGN>
+struct Half {
+  static constexpr int N = 1 << LOGN;
+  static constexpr int H = N / 2;          // the block's half row
+  static constexpr int T = H / 32;         // threads
+  static constexpr int S1 = LOGN - 11;     // stages of phase 1
+  static constexpr int SKEW = LOGN - 11;   // line >> SKEW: the line's skew
+  static constexpr int M3 = H / 32;        // groups at phase 3's first stage
+  // buf (H + 32 words), then the phase 1-2 twiddles s_w, s_ws (T each)
+  static constexpr int SMEM = static_cast<int>(sizeof(uint32_t)) *
+                              (H + 32 + 2 * T);
+
+  // Word of element 1024 warp + lane + 32 k (phase 2; line 32 warp + k at
+  // 32 line + lane + (line >> SKEW)) as a per-warp base plus a constant:
+  // 32 warp is a multiple of 2^SKEW.  Written this way, the compiler need
+  // not keep 32 addresses live from an exchange's read across phase 2 to
+  // the write at the same words.
+  static __device__ int line_base(int warp, int lane) {
+    return 1024 * warp + lane + (warp << (5 - SKEW));
+  }
+  static __host__ __device__ constexpr int line_off(int k) {
+    return 32 * k + (k >> SKEW);
+  }
+
+  // s_w[m + i] = w[(2 + c) m + i] for the m < T groups of phases 1-2
+  static __device__ void load_twiddles(uint32_t* s_w, uint32_t* s_ws,
+                                       const uint32_t* w, const uint32_t* ws,
+                                       int c, int tid) {
+    if (tid > 0) {
+      const int m = 1 << (31 - __clz(tid));
+      s_w[tid] = __ldg(w + tid + (1 + c) * m);
+      s_ws[tid] = __ldg(ws + tid + (1 + c) * m);
+    }
   }
 };
 
@@ -171,15 +243,11 @@ ntt_fwd_kernel(const uint32_t* __restrict__ x, uint32_t* __restrict__ y,
                RowMap map, const uint32_t* __restrict__ qs,
                const uint32_t* __restrict__ tw,
                const uint32_t* __restrict__ tws) {
-  constexpr int N = 1 << LOGN;
-  constexpr int H = N / 2;            // the block's half row
-  constexpr int T = H / 32;           // threads; thread tid owns column tid
-  constexpr int S1 = LOGN - 11;       // stages of phase 1
-  constexpr int SKEW = LOGN - 11;     // line >> SKEW: the line's skew
-  constexpr int M3 = H / 32;          // stage groups at phase 3's first stage
+  using B = Half<LOGN>;
+  constexpr int N = B::N, H = B::H, T = B::T, S1 = B::S1, SKEW = B::SKEW;
   extern __shared__ uint32_t smem[];
-  uint32_t* buf = smem;               // both exchanges: H + 32 words
-  uint32_t* s_w = smem + H + 32;      // s_w[m + i] = w[(2 + c) m + i]
+  uint32_t* buf = smem;
+  uint32_t* s_w = smem + H + 32;
   uint32_t* s_ws = s_w + T;
   const int c = blockIdx.x & 1;
   const int item = blockIdx.x >> 1;
@@ -194,11 +262,7 @@ ntt_fwd_kernel(const uint32_t* __restrict__ x, uint32_t* __restrict__ y,
   const int warp = tid >> 5;
   const int lane = tid & 31;
   const int g = bitrev(tid, LOGN - 6);  // phase 3: coefficients 32g .. 32g+31
-  if (tid > 0) {
-    const int m = 1 << (31 - __clz(tid));
-    s_w[tid] = __ldg(w + tid + (1 + c) * m);
-    s_ws[tid] = __ldg(ws + tid + (1 + c) * m);
-  }
+  B::load_twiddles(s_w, s_ws, w, ws, c, tid);
 
   // stage 1: a = x[p] +- w[1] x[p + n/2] for the half's positions p
   uint32_t a[32];
@@ -214,120 +278,218 @@ ntt_fwd_kernel(const uint32_t* __restrict__ x, uint32_t* __restrict__ y,
   __syncthreads();                                       // barrier 1
 
   // phase 1
-  if constexpr (S1 > 0) stage_shared<0>(a, s_w + 1, s_ws + 1, q);
-  if constexpr (S1 > 1) stage_shared<1>(a, s_w + 2, s_ws + 2, q);
-  if constexpr (S1 > 2) stage_shared<2>(a, s_w + 4, s_ws + 4, q);
-  if constexpr (S1 > 3) stage_shared<3>(a, s_w + 8, s_ws + 8, q);
+  if constexpr (S1 > 0) stage_shared<0, false>(a, s_w + 1, s_ws + 1, q);
+  if constexpr (S1 > 1) stage_shared<1, false>(a, s_w + 2, s_ws + 2, q);
+  if constexpr (S1 > 2) stage_shared<2, false>(a, s_w + 4, s_ws + 4, q);
+  if constexpr (S1 > 3) stage_shared<3, false>(a, s_w + 8, s_ws + 8, q);
 
-  // exchange 1: to 1024-element blocks, one per warp
+  // exchange 1: element tid + T k (line warp + (T / 32) k, skew k) to its
+  // warp of phase 2
 #pragma unroll
-  for (int k = 0; k < 32; ++k) buf[tid + T * k] = a[k];
+  for (int k = 0; k < 32; ++k) buf[tid + (T + 1) * k] = a[k];
   __syncthreads();                                       // barrier 2
+  const int l2 = B::line_base(warp, lane);
 #pragma unroll
-  for (int k = 0; k < 32; ++k) a[k] = buf[1024 * warp + lane + 32 * k];
+  for (int k = 0; k < 32; ++k) a[k] = buf[l2 + B::line_off(k)];
 
   // phase 2
-  stage_shared<0>(a, s_w + (1 << S1) + warp, s_ws + (1 << S1) + warp, q);
-  stage_shared<1>(a, s_w + (2 << S1) + (warp << 1),
-                  s_ws + (2 << S1) + (warp << 1), q);
-  stage_shared<2>(a, s_w + (4 << S1) + (warp << 2),
-                  s_ws + (4 << S1) + (warp << 2), q);
-  stage_shared<3>(a, s_w + (8 << S1) + (warp << 3),
-                  s_ws + (8 << S1) + (warp << 3), q);
-  stage_shared<4>(a, s_w + (16 << S1) + (warp << 4),
-                  s_ws + (16 << S1) + (warp << 4), q);
+  stage_shared<0, false>(a, s_w + (1 << S1) + warp, s_ws + (1 << S1) + warp,
+                         q);
+  stage_shared<1, false>(a, s_w + (2 << S1) + (warp << 1),
+                         s_ws + (2 << S1) + (warp << 1), q);
+  stage_shared<2, false>(a, s_w + (4 << S1) + (warp << 2),
+                         s_ws + (4 << S1) + (warp << 2), q);
+  stage_shared<3, false>(a, s_w + (8 << S1) + (warp << 3),
+                         s_ws + (8 << S1) + (warp << 3), q);
+  stage_shared<4, false>(a, s_w + (16 << S1) + (warp << 4),
+                         s_ws + (16 << S1) + (warp << 4), q);
 
-  // exchange 2: skewed 32-word lines (only this warp read its lines)
+  // exchange 2: back to the words this warp read, then to phase 3
   __syncwarp();
 #pragma unroll
-  for (int k = 0; k < 32; ++k) {
-    const int line = 32 * warp + k;
-    buf[32 * line + lane + (line >> SKEW)] = a[k];
-  }
+  for (int k = 0; k < 32; ++k) buf[l2 + B::line_off(k)] = a[k];
   __syncthreads();                                       // barrier 3
 #pragma unroll
   for (int k = 0; k < 32; ++k) a[k] = buf[32 * g + (g >> SKEW) + k];
 
   // phase 3
-  const int b3 = (2 + c) * M3 + g;    // stage s: twiddles (b3 << s) + j
-  stage_global<0>(a, w + b3, ws + b3, q);
-  stage_global<1>(a, w + (b3 << 1), ws + (b3 << 1), q);
-  stage_global<2>(a, w + (b3 << 2), ws + (b3 << 2), q);
-  stage_global<3>(a, w + (b3 << 3), ws + (b3 << 3), q);
-  stage_global<4>(a, w + (b3 << 4), ws + (b3 << 4), q);
+  const int b3 = (2 + c) * B::M3 + g;  // stage s: twiddles (b3 << s) + j
+  stage_global<0, false>(a, w + b3, ws + b3, q);
+  stage_global<1, false>(a, w + (b3 << 1), ws + (b3 << 1), q);
+  stage_global<2, false>(a, w + (b3 << 2), ws + (b3 << 2), q);
+  stage_global<3, false>(a, w + (b3 << 3), ws + (b3 << 3), q);
+  stage_global<4, false>(a, w + (b3 << 4), ws + (b3 << 4), q);
 
   uint32_t* dst = y + static_cast<size_t>(map.row(item)) * N + c;
 #pragma unroll
   for (int k = 0; k < 32; ++k) dst[2 * (brev5(k) * T + tid)] = a[k];
 }
 
-template <int LOGN>
-cudaError_t launch_fwd(const uint32_t* x, uint32_t* y, const RowMap& map,
-                       const uint32_t* qs, const uint32_t* tw,
-                       const uint32_t* tws, cudaStream_t stream) {
-  constexpr int T = (1 << LOGN) / 64;
-  constexpr int smem =
-      static_cast<int>(sizeof(uint32_t)) * ((1 << LOGN) / 2 + 32 + 2 * T);
-  static bool ready = false;
-  if (!ready) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        ntt_fwd_kernel<LOGN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        smem);
-    if (e != cudaSuccess) return e;
-    ready = true;
-  }
-  ntt_fwd_kernel<LOGN><<<2 * map.work, T, smem, stream>>>(x, y, map, qs, tw,
-                                                           tws);
-  return cudaGetLastError();
+// K2's hand-over before the last stage: block C keeps elements tid + T k
+// for k in [16 C, 16 C + 16) and gives the other 16 to its partner, each
+// at the address this thread read it from in exchange 2 (k < 16 there).
+template <int C, int T>
+__device__ __forceinline__ void give(const uint32_t (&a)[32], uint32_t* buf,
+                                     int tid) {
+#pragma unroll
+  for (int k = 0; k < 16; ++k) buf[tid + (T + 1) * k] = a[16 * (1 - C) + k];
 }
 
-// Gentleman-Sande, natural-order evaluations loaded bit-reversed,
-// coefficient order out, times n^-1.
-__global__ void __launch_bounds__(1024)
+// The last stage for block C's positions p = tid + T k, k in [16 C,
+// 16 C + 16): u from half 0, v from half 1 (the partner's words `peer`).
+template <int C, int T>
+__device__ __forceinline__ void last_stage(const uint32_t (&a)[32],
+                                           const uint32_t* peer,
+                                           uint32_t* dst, int tid,
+                                           uint32_t s0, uint32_t s0s,
+                                           uint32_t s1, uint32_t s1s,
+                                           uint32_t q) {
+  constexpr int H = 32 * T;
+#pragma unroll
+  for (int k = 0; k < 16; ++k) {
+    const uint32_t own = a[16 * C + k];
+    const uint32_t other = peer[tid + (T + 1) * k];
+    const uint32_t u = C ? other : own;
+    const uint32_t v = C ? own : other;
+    const int p = tid + T * (16 * C + k);
+    dst[p] = shoup_mul(u + v, s0, s0s, q);              // lazy: below 2q
+    dst[p + H] = shoup_mul(u + q - v, s1, s1s, q);
+  }
+}
+
+template <int LOGN>
+__global__ void __cluster_dims__(2, 1, 1)
+__launch_bounds__((1 << LOGN) / 64, 1024 / ((1 << LOGN) / 64))
 ntt_inv_kernel(const uint32_t* __restrict__ x, uint32_t* __restrict__ y,
-               const int32_t* __restrict__ row_limb,
+               RowMap map, long long entry_stride,
                const uint32_t* __restrict__ qs,
                const uint32_t* __restrict__ itw,
                const uint32_t* __restrict__ itws,
                const uint32_t* __restrict__ ninv,
-               const uint32_t* __restrict__ ninv_s, int logn) {
-  extern __shared__ uint32_t a[];
-  const int n = 1 << logn;
-  const int half = n >> 1;
-  const size_t row = blockIdx.x;
-  const int limb = row_limb[row];
+               const uint32_t* __restrict__ ninv_s,
+               const uint32_t* __restrict__ ninv_w,
+               const uint32_t* __restrict__ ninv_ws) {
+  using B = Half<LOGN>;
+  constexpr int N = B::N, H = B::H, T = B::T, S1 = B::S1, SKEW = B::SKEW;
+  extern __shared__ uint32_t smem[];
+  uint32_t* buf = smem;
+  uint32_t* s_w = smem + H + 32;
+  uint32_t* s_ws = s_w + T;
+  const int c = blockIdx.x & 1;        // the block's rank in its cluster
+  const int item = blockIdx.x >> 1;
+  const int limb_i = map.limb(item);
+  if (limb_i < 0) return;              // both blocks of the cluster
+  const size_t limb = static_cast<size_t>(limb_i);
   const uint32_t q = qs[limb];
-  const uint32_t* w = itw + static_cast<size_t>(limb) * n;
-  const uint32_t* ws = itws + static_cast<size_t>(limb) * n;
-  const uint32_t* src = x + row * n;
-  for (int k = threadIdx.x; k < n; k += blockDim.x) a[bitrev(k, logn)] = src[k];
-  __syncthreads();
-  for (int logt = 0; logt < logn; ++logt) {
-    const int t = 1 << logt;
-    const int m = half >> logt;
-    for (int k = threadIdx.x; k < half; k += blockDim.x) {
-      const int i = k >> logt;
-      const int idx = (i << (logt + 1)) + (k & (t - 1));
-      const uint32_t u = a[idx];
-      const uint32_t v = a[idx + t];
-      a[idx] = add_mod(u, v, q);
-      a[idx + t] = shoup_mul(sub_mod(u, v, q), w[m + i], ws[m + i], q);
-    }
-    __syncthreads();
-  }
-  const uint32_t s = ninv[limb];
-  const uint32_t ss = ninv_s[limb];
-  uint32_t* dst = y + row * n;
-  for (int k = threadIdx.x; k < n; k += blockDim.x) dst[k] = shoup_mul(a[k], s, ss, q);
+  const uint32_t* w = itw + limb * N;
+  const uint32_t* ws = itws + limb * N;
+  const uint32_t* src = x + map.entry(item) * entry_stride +
+                        static_cast<long long>(map.pos(item)) * N + c;
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int g = bitrev(tid, LOGN - 6);
+  const int l2 = B::line_base(warp, lane);
+  B::load_twiddles(s_w, s_ws, w, ws, c, tid);
+
+  // the evaluations of parity c: element 32g + k of the half
+  uint32_t a[32];
+#pragma unroll
+  for (int k = 0; k < 32; ++k) a[k] = __ldcs(src + 2 * (brev5(k) * T + tid));
+
+  // phase 3 (distances 1 .. 16)
+  const int b3 = (2 + c) * B::M3 + g;
+  stage_global<4, true>(a, w + (b3 << 4), ws + (b3 << 4), q);
+  stage_global<3, true>(a, w + (b3 << 3), ws + (b3 << 3), q);
+  stage_global<2, true>(a, w + (b3 << 2), ws + (b3 << 2), q);
+  stage_global<1, true>(a, w + (b3 << 1), ws + (b3 << 1), q);
+  stage_global<0, true>(a, w + b3, ws + b3, q);
+
+  // exchange 1: to 1024-element blocks, one per warp
+#pragma unroll
+  for (int k = 0; k < 32; ++k) buf[32 * g + (g >> SKEW) + k] = a[k];
+  __syncthreads();                                       // barrier 1
+#pragma unroll
+  for (int k = 0; k < 32; ++k) a[k] = buf[l2 + B::line_off(k)];
+
+  // phase 2 (distances 32 .. 512)
+  stage_shared<4, true>(a, s_w + (16 << S1) + (warp << 4),
+                        s_ws + (16 << S1) + (warp << 4), q);
+  stage_shared<3, true>(a, s_w + (8 << S1) + (warp << 3),
+                        s_ws + (8 << S1) + (warp << 3), q);
+  stage_shared<2, true>(a, s_w + (4 << S1) + (warp << 2),
+                        s_ws + (4 << S1) + (warp << 2), q);
+  stage_shared<1, true>(a, s_w + (2 << S1) + (warp << 1),
+                        s_ws + (2 << S1) + (warp << 1), q);
+  stage_shared<0, true>(a, s_w + (1 << S1) + warp, s_ws + (1 << S1) + warp,
+                        q);
+
+  // exchange 2: back to the words this warp read, then element tid + T k
+  __syncwarp();
+#pragma unroll
+  for (int k = 0; k < 32; ++k) buf[l2 + B::line_off(k)] = a[k];
+  __syncthreads();                                       // barrier 2
+#pragma unroll
+  for (int k = 0; k < 32; ++k) a[k] = buf[tid + (T + 1) * k];
+
+  // phase 1 (distances 1024 .. n/4)
+  if constexpr (S1 > 3) stage_shared<3, true>(a, s_w + 8, s_ws + 8, q);
+  if constexpr (S1 > 2) stage_shared<2, true>(a, s_w + 4, s_ws + 4, q);
+  if constexpr (S1 > 1) stage_shared<1, true>(a, s_w + 2, s_ws + 2, q);
+  if constexpr (S1 > 0) stage_shared<0, true>(a, s_w + 1, s_ws + 1, q);
+
+  // the last stage, across the cluster
+  cg::cluster_group cluster = cg::this_cluster();
+  if (c) give<1, T>(a, buf, tid); else give<0, T>(a, buf, tid);
+  cluster.sync();
+  const uint32_t* peer = cluster.map_shared_rank(buf, c ^ 1);
+  uint32_t* dst = y + static_cast<size_t>(map.row(item)) * N;
+  const uint32_t s0 = ninv[limb], s0s = ninv_s[limb];
+  const uint32_t s1 = ninv_w[limb], s1s = ninv_ws[limb];
+  if (c)
+    last_stage<1, T>(a, peer, dst, tid, s0, s0s, s1, s1s, q);
+  else
+    last_stage<0, T>(a, peer, dst, tid, s0, s0s, s1, s1s, q);
+  cluster.sync();                      // the partner is done with buf
 }
 
+// The dynamic shared memory above 48 KB is allowed once per instantiation.
 template <typename Kernel>
-cudaError_t prepare(Kernel kernel, int logn, size_t* smem, int* threads) {
-  *smem = sizeof(uint32_t) << logn;
-  *threads = (1 << (logn - 1)) < 1024 ? (1 << (logn - 1)) : 1024;
-  return cudaFuncSetAttribute(kernel,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              static_cast<int>(*smem));
+cudaError_t allow_smem(Kernel kernel, int smem, bool& ready) {
+  if (ready) return cudaSuccess;
+  const cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e == cudaSuccess) ready = true;
+  return e;
+}
+
+template <int LOGN>
+cudaError_t launch_fwd(const uint32_t* x, uint32_t* y, const RowMap& map,
+                       const uint32_t* qs, const uint32_t* tw,
+                       const uint32_t* tws, cudaStream_t stream) {
+  using B = Half<LOGN>;
+  static bool ready = false;
+  const cudaError_t e = allow_smem(ntt_fwd_kernel<LOGN>, B::SMEM, ready);
+  if (e != cudaSuccess) return e;
+  ntt_fwd_kernel<LOGN><<<2 * map.work, B::T, B::SMEM, stream>>>(x, y, map, qs,
+                                                                tw, tws);
+  return cudaGetLastError();
+}
+
+template <int LOGN>
+cudaError_t launch_inv(const uint32_t* x, uint32_t* y, const RowMap& map,
+                       long long entry_stride, const uint32_t* qs,
+                       const uint32_t* itw, const uint32_t* itws,
+                       const uint32_t* ninv, const uint32_t* ninv_s,
+                       const uint32_t* ninv_w, const uint32_t* ninv_ws,
+                       cudaStream_t stream) {
+  using B = Half<LOGN>;
+  static bool ready = false;
+  const cudaError_t e = allow_smem(ntt_inv_kernel<LOGN>, B::SMEM, ready);
+  if (e != cudaSuccess) return e;
+  ntt_inv_kernel<LOGN><<<2 * map.work, B::T, B::SMEM, stream>>>(
+      x, y, map, entry_stride, qs, itw, itws, ninv, ninv_s, ninv_w, ninv_ws);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -355,20 +517,39 @@ int ntt_forward(const void* x, void* y, const void* limb_map, int D, int M,
   }
 }
 
-int ntt_inverse(const void* x, void* y, const void* row_limb, int rows,
-                int logn, const void* qs, const void* itw, const void* itws,
-                const void* ninv, const void* ninv_s, void* stream) {
-  size_t smem;
-  int threads;
-  cudaError_t e = prepare(ntt_inv_kernel, logn, &smem, &threads);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  ntt_inv_kernel<<<rows, threads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint32_t*>(x), static_cast<uint32_t*>(y),
-      static_cast<const int32_t*>(row_limb), static_cast<const uint32_t*>(qs),
-      static_cast<const uint32_t*>(itw), static_cast<const uint32_t*>(itws),
-      static_cast<const uint32_t*>(ninv), static_cast<const uint32_t*>(ninv_s),
-      logn);
-  return static_cast<int>(cudaGetLastError());
+// x: D * M entries of (L, 2^logn) rows, entry_stride elements apart, each
+// entry's rows 2^logn apart; y: (D, M, L, 2^logn) contiguous.  limb_map as
+// for ntt_forward.
+int ntt_inverse(const void* x, void* y, const void* limb_map, int D, int M,
+                int L, long long entry_stride, int logn, const void* qs,
+                const void* itw, const void* itws, const void* ninv,
+                const void* ninv_s, const void* ninv_w, const void* ninv_ws,
+                void* stream) {
+  const RowMap map{static_cast<const int32_t*>(limb_map), D, M, L, D * M * L};
+  const auto* xi = static_cast<const uint32_t*>(x);
+  auto* yo = static_cast<uint32_t*>(y);
+  const auto* q = static_cast<const uint32_t*>(qs);
+  const auto* w = static_cast<const uint32_t*>(itw);
+  const auto* ws = static_cast<const uint32_t*>(itws);
+  const auto* n0 = static_cast<const uint32_t*>(ninv);
+  const auto* n0s = static_cast<const uint32_t*>(ninv_s);
+  const auto* n1 = static_cast<const uint32_t*>(ninv_w);
+  const auto* n1s = static_cast<const uint32_t*>(ninv_ws);
+  const auto s = static_cast<cudaStream_t>(stream);
+  const long long es = entry_stride;
+  switch (logn) {
+    case 11: return static_cast<int>(
+        launch_inv<11>(xi, yo, map, es, q, w, ws, n0, n0s, n1, n1s, s));
+    case 12: return static_cast<int>(
+        launch_inv<12>(xi, yo, map, es, q, w, ws, n0, n0s, n1, n1s, s));
+    case 13: return static_cast<int>(
+        launch_inv<13>(xi, yo, map, es, q, w, ws, n0, n0s, n1, n1s, s));
+    case 14: return static_cast<int>(
+        launch_inv<14>(xi, yo, map, es, q, w, ws, n0, n0s, n1, n1s, s));
+    case 15: return static_cast<int>(
+        launch_inv<15>(xi, yo, map, es, q, w, ws, n0, n0s, n1, n1s, s));
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 }  // extern "C"

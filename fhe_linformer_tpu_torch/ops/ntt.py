@@ -11,13 +11,15 @@ kernels K1/K2 in `csrc/ntt.cu`): forward is radix-2 Cooley-Tukey over
 bit-reversed powers of psi, natural-order input to bit-reversed output,
 with the bit-reversal folded into the read-out; inverse is Gentleman-Sande
 over bit-reversed powers of psi^-1 from bit-reversed input, then a
-multiply by n^-1.  K1 runs the same butterflies in a different order
-(`ntt_cuda.fwd_phased_plain` mirrors its schedule).
+multiply by n^-1.  K1 and K2 run the same butterflies in a different order
+(`ntt_cuda.fwd_phased_plain` / `inv_phased_plain` mirror their schedules);
+K2 folds n^-1 into its last stage.
 
 `fwd` / `inv` take a CUDA tensor to the kernels (`ntt_cuda`) and a CPU
-tensor to the plain int64 version below.  `limbs` names, for each row of
-the limb axis (-2), its index into the full basis the tables cover, so a
-level's limb subset needs no table slicing.
+tensor to the plain int64 version below; `inv` hands a limb slice such as
+`x[..., 1:, :]` to K2 as it is, which reads it in place.  `limbs` names,
+for each row of the limb axis (-2), its index into the full basis the
+tables cover, so a level's limb subset needs no table slicing.
 """
 
 from __future__ import annotations
@@ -61,7 +63,9 @@ class NttTables:
 
     psi_rev[l, i] = psi_l^bitrev(i) and ipsi_rev[l, i] = psi_l^-bitrev(i),
     each with its Shoup companion floor(w * 2**32 / q) (uint32 bits in
-    int32 storage); n_inv per prime with its companion."""
+    int32 storage); n_inv per prime with its companion, and n_inv_w =
+    ipsi_rev[:, 1] * n^-1 (the inverse's last twiddle with n^-1 folded in,
+    kernel K2's constant) with its companion."""
 
     def __init__(self, n: int, qs, device):
         self.n = n
@@ -87,10 +91,12 @@ class NttTables:
         self.ipsi_rev_s = dev(_as_i32(shoup_precompute(iw, qcol)))
         self.n_inv = dev(ninv.astype(np.int32))
         self.n_inv_s = dev(_as_i32(shoup_precompute(ninv, qcol[:, 0])))
+        ninv_w = iw[:, 1] * ninv % qcol[:, 0]
+        self.n_inv_w = dev(ninv_w.astype(np.int32))
+        self.n_inv_ws = dev(_as_i32(shoup_precompute(ninv_w, qcol[:, 0])))
         self.brev = dev(brv)
         self._idx: dict[tuple, torch.Tensor] = {}
         self._maps: dict[tuple, torch.Tensor] = {}
-        self._rows: dict[tuple, torch.Tensor] = {}
 
     def index(self, limbs) -> torch.Tensor:
         """int64 device tensor of basis indices, cached per limb tuple."""
@@ -101,23 +107,15 @@ class NttTables:
         return self._idx[key]
 
     def limb_map(self, limbs) -> torch.Tensor:
-        """(D, L) int32 device tensor of basis indices for kernel K1: one
-        row for a limb tuple, one per leading-axis entry for a limb map."""
+        """(D, L) int32 device tensor of basis indices for kernels K1/K2:
+        one row for a limb tuple, one per leading-axis entry for a limb
+        map."""
         key = tuple(map(tuple, limbs)) if is_limb_map(limbs) \
             else (tuple(limbs),)
         if key not in self._maps:
             self._maps[key] = torch.tensor(key, dtype=torch.int32,
                                            device=self.device)
         return self._maps[key]
-
-    def row_limbs(self, limbs, rows: int) -> torch.Tensor:
-        """(rows,) int32 basis index of every row of a (..., L, n) tensor,
-        for kernel K2; cached per (limbs, rows)."""
-        key = (tuple(limbs), rows)
-        if key not in self._rows:
-            self._rows[key] = self.index(limbs).int().repeat(
-                rows // len(limbs))
-        return self._rows[key]
 
 
 def is_limb_map(limbs) -> bool:
@@ -144,10 +142,12 @@ def fwd(x: torch.Tensor, t: NttTables, limbs) -> torch.Tensor:
 
 
 def inv(x: torch.Tensor, t: NttTables, limbs) -> torch.Tensor:
-    """(..., L, n) int32 evaluations -> coefficients."""
+    """(..., L, n) int32 evaluations -> contiguous coefficients.  On the
+    card x may be a limb slice of a larger tensor (rows n apart, leading
+    entries at one stride); K2 reads it in place."""
     if x.is_cuda:
         from . import ntt_cuda
-        return ntt_cuda.inv(x.contiguous(), t, limbs)
+        return ntt_cuda.inv(x, t, limbs)
     return inv_plain(x, t, limbs)
 
 
@@ -174,7 +174,8 @@ def fwd_plain(x: torch.Tensor, t: NttTables, limbs) -> torch.Tensor:
 
 def inv_plain(x: torch.Tensor, t: NttTables, limbs) -> torch.Tensor:
     """Plain int64 inverse NTT: kernel K2's Gentleman-Sande stages from
-    the bit-reversed load, then the multiply by n^-1."""
+    the bit-reversed load, then the multiply by n^-1 (K2 folds it into its
+    last stage)."""
     n = t.n
     idx = t.index(limbs)
     q = t.q[idx].long().view(-1, 1, 1)

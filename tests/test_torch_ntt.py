@@ -5,8 +5,10 @@ at the production ring n = 2^15 (L = 3 limbs, batch 2).
 
 The port's CUDA kernels K1/K2 compute the same butterflies as the plain
 version tested here; chip_smoke.py holds them against it on the card.
-`ntt_cuda.fwd_phased_plain` repeats K1's schedule (thread/element mapping,
-twiddle indices, exchanges) in int64 and is held against both here."""
+`ntt_cuda.fwd_phased_plain` / `inv_phased_plain` repeat K1's and K2's
+schedules (thread/element mapping, twiddle indices, exchanges, K2's
+cross-block last stage with n^-1 folded in) in int64 and are held against
+both here, also at 2^13, where phase 1 has two stages."""
 
 import numpy as np
 import jax.numpy as jnp
@@ -17,6 +19,7 @@ from fhe_linformer_tpu.ops import ntt_pallas
 from fhe_linformer_tpu.ops.ntt import NttContext, _fwd, _inv
 from fhe_linformer_tpu.primes import ntt_primes
 from fhe_linformer_tpu_torch.ops import ntt, ntt_cuda
+from fhe_linformer_tpu_torch.primes import root_of_unity
 
 L, B = 3, 2
 
@@ -108,10 +111,104 @@ def test_launch_tables_cached(case):
     _, tables, _, _ = case
     assert tables.limb_map((2, 0)) is tables.limb_map((2, 0))
     assert tuple(tables.limb_map(((0, -1), (1, 2))).shape) == (2, 2)
-    rl = tables.row_limbs((2, 0), 6)
-    assert rl is tables.row_limbs((2, 0), 6)
-    assert rl.tolist() == [2, 0] * 3 and rl.dtype == torch.int32
+    lm = tables.limb_map((2, 0))
+    assert lm.tolist() == [[2, 0]] and lm.dtype == torch.int32
     with pytest.raises(ValueError, match="below K1"):
         ntt_cuda.fwd_phased_plain(torch.zeros((1, 1 << 10), dtype=torch.int32),
                                   ntt.NttTables(1 << 10, tables.qs[:1], "cpu"),
                                   (0,))
+
+
+def test_k2_schedule_mirror(case):
+    """K2's phased schedule (parity loads, phases 3-2-1 with the inverse
+    butterflies, skewed exchanges, the last stage split across the cluster
+    with n^-1 folded in) mirrored in int64 equals the plain transform and
+    the JAX package's, and at 2^11 the Pallas kernel too."""
+    jctx, tables, x, want = case
+    xt = torch.from_numpy(x.astype(np.int32))
+    got = ntt_cuda.inv_phased_plain(xt, tables, (0, 1, 2))
+    np.testing.assert_array_equal(got.numpy(),
+                                  ntt.inv_plain(xt, tables, (0, 1, 2)).numpy())
+    np.testing.assert_array_equal(got.numpy().astype(np.uint32), want["inv"])
+    if tables.n == 1 << 11:
+        pallas = ntt_pallas.inv(jnp.asarray(x), jctx.full, interpret=True)
+        np.testing.assert_array_equal(got.numpy().astype(np.uint32),
+                                      np.asarray(pallas))
+
+
+@pytest.fixture(scope="module")
+def case_2_13():
+    """n = 2^13, where phase 1 of K1/K2 has 2 stages (0 at 2^11, 4 at
+    2^15) and the exchange skew is 2."""
+    n = 1 << 13
+    qs = ntt_primes(2 * n, 2)
+    rng = np.random.default_rng(13)
+    x = np.stack([rng.integers(0, q, n, dtype=np.uint32) for q in qs])[None]
+    return ntt.NttTables(n, qs, "cpu"), NttContext(n, qs), x
+
+
+@pytest.mark.parametrize("direction", ["fwd", "inv"])
+def test_schedule_mirrors_n2_13(case_2_13, direction):
+    tables, jctx, x = case_2_13
+    xt = torch.from_numpy(x.astype(np.int32))
+    mirror, plain, ref = ((ntt_cuda.fwd_phased_plain, ntt.fwd_plain, _fwd)
+                          if direction == "fwd" else
+                          (ntt_cuda.inv_phased_plain, ntt.inv_plain, _inv))
+    got = mirror(xt, tables, (0, 1))
+    np.testing.assert_array_equal(got.numpy(), plain(xt, tables, (0, 1)).numpy())
+    np.testing.assert_array_equal(got.numpy().astype(np.uint32),
+                                  np.asarray(ref(jnp.asarray(x), jctx.full)))
+
+
+def test_folded_ninv_tables(case):
+    """K2's last-stage constants: n^-1 and psi^-(n/2) n^-1 per prime (the
+    inverse's twiddle 1 is psi^-bitrev(1)), each with its Shoup companion
+    floor(v 2^32 / q), against Python big-int arithmetic."""
+    _, tables, _, _ = case
+    n = tables.n
+    u32 = lambda a: (a.numpy().astype(np.int64) & 0xFFFFFFFF).tolist()
+    for i, q in enumerate(tables.qs):
+        psi = root_of_unity(2 * n, q)
+        ninv = pow(n, -1, q)
+        ninv_w = pow(psi, -(n // 2), q) * ninv % q
+        assert int(tables.ipsi_rev[i, 1]) == pow(psi, -(n // 2), q)
+        assert int(tables.n_inv[i]) == ninv
+        assert int(tables.n_inv_w[i]) == ninv_w
+        assert u32(tables.n_inv_s)[i] == (ninv << 32) // q
+        assert u32(tables.n_inv_ws)[i] == (ninv_w << 32) // q
+
+
+def test_inv_limb_slice(case):
+    """ntt.inv of a limb slice (the rescale's and mod-down's x[..., l:, :])
+    equals it on the slice's contiguous copy."""
+    _, tables, x, _ = case
+    xt = torch.from_numpy(x.astype(np.int32))
+    for sl in (xt[..., 1:, :], xt[..., 2:, :], xt[None, :, 1:].expand(2, -1,
+                                                                     -1, -1)):
+        limbs = tuple(range(3 - sl.shape[-2], 3))
+        assert not sl.is_contiguous()
+        np.testing.assert_array_equal(
+            ntt.inv(sl, tables, limbs).numpy(),
+            ntt.inv(sl.contiguous(), tables, limbs).numpy())
+
+
+def test_k2_entry_stride():
+    """K2's wrapper reads a limb slice in place: rows n apart and the
+    leading axes at one stride; any other layout raises."""
+    n = 1 << 11
+    x = torch.zeros((2, 8, 57, n), dtype=torch.int32)
+    assert ntt_cuda.entry_stride(x) == 57 * n
+    assert ntt_cuda.entry_stride(x[..., 56:, :]) == 57 * n      # rescale
+    assert ntt_cuda.entry_stride(x[:, :, 37:]) == 57 * n        # mod-down
+    assert ntt_cuda.entry_stride(x[:1, 3:4, 5:]) == 52 * n      # one entry
+    assert ntt_cuda.entry_stride(x[:, ::2]) == 2 * 57 * n
+    for bad in (x.transpose(0, 1), x[..., ::2], x[:, :, ::2]):
+        with pytest.raises(ValueError):
+            ntt_cuda.entry_stride(bad)
+
+
+def test_cuda_inverse_refuses_cpu_tensor(case):
+    _, tables, x, _ = case
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        ntt_cuda.inv(torch.from_numpy(x.astype(np.int32))[..., 1:, :], tables,
+                     (1, 2))
