@@ -23,7 +23,19 @@ Phases, each printing one JSON line:
                 warm S = 128 request (device time per kernel, idle share,
                 and the shapes each kernel was launched at, with their
                 device time)
-  5. the `kernels` line: every kernel with its launches during phase 4
+  5. bootstrap - the wide production bootstrap (BootConfig.wide_production
+                with scale_boost 4, the linformer-boot-w chain) of a batch of
+                4 ciphertexts dropped to one limb, first and warm: seconds,
+                output level, precision in bits against the message, key
+                generation, memory, and a traced warm bootstrap
+  6. boot_forward - the bootstrapped packed Linformer (the production path:
+                linformer-boot-w, wide bootstrap at scale_boost 2, refreshes
+                mid-exp, before the GELU and at the pooler; degree-119
+                inverse and GELU, degree-247 tanh, inputs at 12 limbs)
+                answering S = 128 (cold, warm) and S = 700 (6 chunks),
+                each checked against the golden model, then one traced warm
+                S = 128 request
+  7. the `kernels` line: every kernel with its launches over phases 4-6
 
 It ends with {"ok": true, "device": {...}}.  Any failure raises and exits
 non-zero before that line.  There is no CPU path: the script refuses to run
@@ -51,6 +63,7 @@ INT8_TC_OPS_PER_S = 1979e12      # H100 SXM dense int8 tensor-core rate
 # clock per SM for 32-bit integer multiply(-add), half the float32 FMA rate
 INT_MUL_PER_CLOCK_PER_SM = 64
 PORT = "fhe_linformer_tpu_torch"
+KERNELS = ("ntt_fwd", "ntt_inv", "base_convert")
 REFERENCE = PORT.removesuffix("_torch")      # the JAX package the port mirrors
 REPLACES = {"ntt_fwd": f"{REFERENCE}/ops/ntt_pallas.py:195",
             "ntt_inv": f"{REFERENCE}/ops/ntt_pallas.py:199",
@@ -59,6 +72,13 @@ SOURCES = {"ntt_fwd": f"{PORT}/csrc/ntt.cu", "ntt_inv": f"{PORT}/csrc/ntt.cu",
            "base_convert": f"{PORT}/csrc/basecvt.cu"}
 LOG2N = 15
 MODDOWN_BATCH = 16       # the mod-down's batch on the forward (2 halves x 8)
+# the JAX package's records of the same requests on its own chip: counts
+# and levels only (bench_layer_S128_packed_boot.json,
+# bench_layer_S700_packed_boot.json, bench_details.json)
+REFERENCE_BOOTSTRAPS = {128: 3, 700: 13}
+REFERENCE_KEYSWITCHES_S128 = {"attention": 1383, "ffn_gelu": 482,
+                              "pooler_classifier": 196}
+REFERENCE_BOOT = {"out_nl": 23, "precision_bits": 7.03, "rotation_keys": 46}
 
 
 def emit(obj) -> None:
@@ -209,18 +229,18 @@ def _fwd_case(tables, B, L, gen, reps, limb_map=None):
             "bound_ms": b_ms, "bound_by": b_by}
 
 
-def _inv_case(tables, lead, limbs, start, gen, reps):
+def _inv_case(tables, lead, limbs, start, gen, reps, stop=None):
     """K2 through the port's `ntt.inv`, as the evaluator calls it, on the
-    limb slice x[..., start:, :] of a (*lead, len(limbs), n) tensor (the
-    rescale's top limb, the mod-down's special limbs; start 0: the whole
-    tensor).  `read_in_place`: the kernel's wrapper got the slice itself,
-    not a copy."""
+    limb slice x[..., start:stop, :] of a (*lead, len(limbs), n) tensor (the
+    rescale's top limb, the mod-down's special limbs, the mod-raise's limb
+    0; start 0, no stop: the whole tensor).  `read_in_place`: the kernel's
+    wrapper got the slice itself, not a copy."""
     from fhe_linformer_tpu_torch.ops import ntt, ntt_cuda
     n = tables.n
     full = random_residues(tuple(lead) + (len(limbs), n),
                            [tables.qs[i] for i in limbs], gen, "cuda")
-    x = full[..., start:, :]
-    sub = tuple(limbs[start:])
+    x = full[..., start:stop, :]
+    sub = tuple(limbs[start:stop])
     kernel, seen = ntt_cuda.inv, []
 
     def spy(y, t, lim):
@@ -241,6 +261,7 @@ def _inv_case(tables, lead, limbs, start, gen, reps):
     b_ms, b_by = bound(nbytes, mults)
     return {"kernel": "ntt_inv", "shape": shape,
             "source": list(full.shape), "limbs_from": start,
+            "limbs_to": len(limbs) if stop is None else stop,
             "active_rows": active, "read_in_place": seen == [True],
             "max_abs_err": err,
             "ms": cuda_ms(lambda: ntt.inv(x, tables, sub), reps, inner=10),
@@ -297,6 +318,10 @@ def phase_kernels(ctx):
     small = NttTables(1 << 11, ctx.basis[:L], "cuda")
     full = tuple(range(L))
     act57, ext57 = fw.act_idx, fw.act_idx + fw.sp_idx
+    act59 = ks.act_idx
+    pair = ctx.ks_tables(52)             # EvalMod's first key switches
+    em45 = ctx.ks_tables(45)             # EvalMod's most frequent level
+    lo10 = ctx.ks_tables(10)             # the bootstrapped circuit's floor
     rows = [_fwd_case(ctx.ntt, 4, L, gen, 20),
             _inv_case(ctx.ntt, (4,), full, 0, gen, 20),
             _fwd_case(ctx.ntt, 8, None, gen, 10, limb_map=fw.dig_limbs),
@@ -317,7 +342,48 @@ def phase_kernels(ctx):
             _bc_case(fw.bc, 57, 8, False, gen, 20),
             _bc_case(low.bc, 22, 1, False, gen, 20),
             _bc_case(ks.bc, nl, 32, False, gen, 10),
-            _bc_case(fw.md, ctx.k_sp, MODDOWN_BATCH, True, gen, 20)]
+            _bc_case(fw.md, ctx.k_sp, MODDOWN_BATCH, True, gen, 20),
+            # the bootstrap (phases 5-6, launch_shapes): mod-raise's K2 on
+            # limb 0 of a batch dropped to one limb (the slice of the full
+            # chain, read in place) and its K1 on all 59 limbs; the key
+            # switches at the top levels, batch 1 (coeffs-to-slots of one
+            # ciphertext) and batch 2 (EvalMod's re/im pair); the diagonal
+            # plaintexts' K1 over the extended basis, 8 at a time
+            _inv_case(ctx.ntt, (4,), act59, 0, gen, 20, stop=1),
+            _fwd_case(ctx.ntt, 4, nl, gen, 20),
+            _inv_case(ctx.ntt, (1,), act59, 0, gen, 20),
+            _bc_case(ks.bc, nl, 1, False, gen, 20),
+            _fwd_case(ctx.ntt, 1, None, gen, 10, limb_map=ks.dig_limbs),
+            _inv_case(ctx.ntt, (2,), pair.act_idx, 0, gen, 20),
+            _bc_case(pair.bc, pair.nl, 2, False, gen, 20),
+            _fwd_case(ctx.ntt, 2, None, gen, 10, limb_map=pair.dig_limbs),
+            _inv_case(ctx.ntt, (2, 2), pair.act_idx + pair.sp_idx, pair.nl,
+                      gen, 20),
+            _bc_case(pair.md, ctx.k_sp, 4, True, gen, 20),
+            _fwd_case(ctx.ntt, 8, L, gen, 20),
+            # the batch-4 bootstrap's most launched classes (phase 5's
+            # launch_shapes): K1 on 350, 720 and 688 rows, the EvalMod
+            # pair's (batch 8) key switch at level 45
+            _fwd_case(ctx.ntt, 14, 25, gen, 20),
+            _fwd_case(ctx.ntt, 16, 45, gen, 20),
+            _fwd_case(ctx.ntt, 16, 43, gen, 20),
+            _bc_case(em45.bc, 45, 8, False, gen, 20),
+            _bc_case(em45.md, ctx.k_sp, MODDOWN_BATCH, True, gen, 20),
+            _inv_case(ctx.ntt, (2, 8), em45.act_idx + em45.sp_idx, 45, gen,
+                      20),
+            # the bootstrapped request's most launched classes (phase 6's
+            # launch_shapes): K1 on 480, 160 and 12 rows; K2 on the rescale
+            # of 2 ciphertexts (4 rows of 1 limb) and a batch-8
+            # decomposition input at level 10; K3's batch-8 key switch at
+            # levels 10 and 9 and its mod-down
+            _fwd_case(ctx.ntt, 16, 30, gen, 20),
+            _fwd_case(ctx.ntt, 16, 10, gen, 20),
+            _fwd_case(ctx.ntt, 1, 12, gen, 20),
+            _inv_case(ctx.ntt, (2, 2), lo10.act_idx, 9, gen, 20),
+            _inv_case(ctx.ntt, (8,), lo10.act_idx, 0, gen, 20),
+            _bc_case(lo10.bc, 10, 8, False, gen, 20),
+            _bc_case(lo10.md, ctx.k_sp, MODDOWN_BATCH, True, gen, 20),
+            _bc_case(ctx.ks_tables(9).bc, 9, 8, False, gen, 20)]
     main = {}
     for r in rows:
         emit({"phase": "kernels", **r})
@@ -376,16 +442,18 @@ def _rotations(slots: int, d: int = 128, bs: int = 16) -> tuple[int, ...]:
     return tuple(sorted(rots))
 
 
-def _calibrated(golden, w, embs):
-    """bench_layer.py's CircuitParams rule (degree 27, exp_pow8=False),
-    taken over every request's golden intermediates."""
+def _calibrated(golden, w, embs, degree=27, tanh_degree=27):
+    """bench_layer.py's CircuitParams rule (exp_pow8=False; degree 27
+    without the bootstrap, 119 and a degree-247 tanh with it), taken over
+    every request's golden intermediates."""
     from fhe_linformer_tpu_torch.models.circuit import CircuitParams
     inters = [golden.forward(w, e, return_intermediates=True)[1] for e in embs]
     rowsums = np.concatenate([i["exp"].sum(-1) for i in inters])
     h = max(np.abs(i["norm1"] @ w.W1.T + w.B1[None]).max() for i in inters)
     p = max(np.abs(i["norm2"][:1] @ w.Wp.T + w.bp[None]).max() for i in inters)
     return CircuitParams(inv_range=(0.5 * rowsums.min(), 1.5 * rowsums.max()),
-                         inv_degree=27, gelu_degree=27, tanh_degree=27,
+                         inv_degree=degree, gelu_degree=degree,
+                         tanh_degree=tanh_degree,
                          gelu_clip=1.0 / (1.2 * h), tanh_scale=1.0 / (1.2 * p),
                          exp_pow8=False), inters
 
@@ -405,7 +473,7 @@ def _device_breakdown(run):
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t) * 1e3
     ours = {k: {"ms": 0.0, "count": 0}
-            for k in ("ntt_fwd", "ntt_inv", "base_convert")}
+            for k in KERNELS}
     other: dict = {}
     runs = {k: [] for k in ours}
     for e in prof.events():
@@ -438,7 +506,7 @@ def _shape_census():
     (batch, g_valid, nd, tgt, prefolded).  Yields {kernel: [shape, ...]}."""
     from fhe_linformer_tpu_torch.ops import basecvt, ntt_cuda
     from fhe_linformer_tpu_torch.ops.ntt import is_limb_map
-    seen = {k: [] for k in ("ntt_fwd", "ntt_inv", "base_convert")}
+    seen = {k: [] for k in KERNELS}
     orig = (ntt_cuda.fwd, ntt_cuda.inv, basecvt.base_convert_cuda)
 
     def fwd(x, t, limbs):
@@ -481,6 +549,84 @@ def _by_shape(calls, runs):
     return out
 
 
+def _stage(log, name, fn, *args, **kw):
+    """fn(*args, **kw) timed behind a synchronize, with the key switches,
+    combo rotations and bootstrapped ciphertexts it counted."""
+    import torch
+    from fhe_linformer_tpu_torch.utils.timing import GLOBAL_TIMERS
+    c0 = dict(GLOBAL_TIMERS.counts)
+    t = time.perf_counter()
+    out = fn(*args, **kw)
+    torch.cuda.synchronize()
+    log[name] = {
+        "s": time.perf_counter() - t,
+        **{k: GLOBAL_TIMERS.counts[k] - c0.get(k, 0)
+           for k in ("keyswitch", "combo_rot", "bootstrap")},
+        "out_nl": out.nl}
+    return out
+
+
+def _answer(circ, emb, log, boot=None, input_nl=None):
+    """One request through the circuit's stages (PackedLinformer.forward
+    split where its stages meet): encrypt at input_nl limbs, attention,
+    affine1, ffn_gelu, affine2, pooler_classifier, decrypt.  Returns the
+    logits and the chunk count."""
+    import torch
+    ev, w = circ.ev, circ.w
+
+    def affine2(a, y, S_total):
+        am, ym = ev.match(a, y)
+        return circ.affine(ev.add(am, ym), w.a2, w.b2, w.c2, S_total)
+    t = time.perf_counter()
+    x, xe, xf, S_total = circ.encrypt_inputs(emb, nl=input_nl)
+    torch.cuda.synchronize()
+    log["encrypt"] = {"s": time.perf_counter() - t, "in_nl": x.nl}
+    a = _stage(log, "attention", circ.attention, x, xe, xf, S_total,
+               boot=boot)
+    a = _stage(log, "affine1", circ.affine, a, w.a1, w.b1, w.c1, S_total)
+    y = _stage(log, "ffn_gelu", circ.ffn, a, boot=boot)
+    r = _stage(log, "affine2", affine2, a, y, S_total)
+    out = _stage(log, "pooler_classifier", circ.pooler_classifier, r,
+                 boot=boot)
+    t = time.perf_counter()
+    logits = circ.decrypt_logits(out)
+    log["decrypt"] = {"s": time.perf_counter() - t}
+    return logits, int(x.c0.shape[0])
+
+
+def _request(phase, circ, emb, want, caches, boot=None, input_nl=None,
+             **extra):
+    """Answers one request, emits its line and fails unless the logits
+    match the golden model's (argmax equal, max |err| <= 0.05)."""
+    import torch
+    from fhe_linformer_tpu_torch.utils.timing import KERNEL_LAUNCHES
+    torch.cuda.reset_peak_memory_stats()
+    before = dict(KERNEL_LAUNCHES)
+    log: dict = {}
+    logits, chunks = _answer(circ, emb, log, boot, input_nl)
+    S = emb.shape[0] + 1
+    err = float(np.max(np.abs(logits - want)))
+    line = {"phase": phase, "S": S, "chunks": chunks,
+            "plaintext_caches": caches,
+            "request_s": sum(v["s"] for v in log.values()),
+            "stages": log,
+            "kernel_launches": {k: KERNEL_LAUNCHES[k] - before[k]
+                                for k in KERNEL_LAUNCHES},
+            "argmax": int(np.argmax(logits)),
+            "golden_argmax": int(np.argmax(want)),
+            "max_abs_logit_err": err,
+            "max_memory_allocated_gb":
+                torch.cuda.max_memory_allocated() / 2 ** 30, **extra}
+    if boot is not None:
+        line["bootstraps"] = sum(v.get("bootstrap", 0) for v in log.values())
+    emit(line)
+    if not np.all(np.isfinite(logits)) or \
+            np.argmax(logits) != np.argmax(want) or not err <= 0.05:
+        raise AssertionError(f"S={S}: logits {logits} vs golden {want} "
+                             f"(max err {err})")
+    return line
+
+
 def phase_forward():
     """Answers each request twice (caches cold, then warm) and checks the
     logits; returns the kernel launch counts of those answers."""
@@ -491,8 +637,7 @@ def phase_forward():
     from fhe_linformer_tpu_torch.config import get
     from fhe_linformer_tpu_torch.models import golden
     from fhe_linformer_tpu_torch.models.circuit_packed import PackedLinformer
-    from fhe_linformer_tpu_torch.utils.timing import (GLOBAL_TIMERS,
-                                                      KERNEL_LAUNCHES,
+    from fhe_linformer_tpu_torch.utils.timing import (KERNEL_LAUNCHES,
                                                       reset_launches)
     t0 = time.perf_counter()
     ctx = Context(get("linformer-boot-w").ckks)
@@ -511,74 +656,154 @@ def phase_forward():
     emit({"phase": "forward_setup", "basis": len(ctx.basis),
           "rotation_keys": len(rots), "keygen_s": setup_s,
           "memory_allocated_gb": torch.cuda.memory_allocated() / 2 ** 30})
-
-    def stage(log, name, fn, *args):
-        c0 = dict(GLOBAL_TIMERS.counts)
-        t = time.perf_counter()
-        out = fn(*args)
-        torch.cuda.synchronize()
-        log[name] = {
-            "s": time.perf_counter() - t,
-            **{k: GLOBAL_TIMERS.counts[k] - c0.get(k, 0)
-               for k in ("keyswitch", "combo_rot", "bootstrap")},
-            "out_nl": out.nl}
-        return out
-
-    def affine2(a, y, S_total):
-        am, ym = ev.match(a, y)
-        return circ.affine(ev.add(am, ym), w.a2, w.b2, w.c2, S_total)
-
-    def answer(emb, log):
-        t = time.perf_counter()
-        x, xe, xf, S_total = circ.encrypt_inputs(emb)
-        torch.cuda.synchronize()
-        log["encrypt"] = {"s": time.perf_counter() - t, "in_nl": x.nl}
-        a = stage(log, "attention", circ.attention, x, xe, xf, S_total)
-        a = stage(log, "affine1", circ.affine, a, w.a1, w.b1, w.c1, S_total)
-        y = stage(log, "ffn_gelu", circ.ffn, a)
-        r = stage(log, "affine2", affine2, a, y, S_total)
-        out = stage(log, "pooler_classifier", circ.pooler_classifier, r)
-        t = time.perf_counter()
-        logits = circ.decrypt_logits(out)
-        log["decrypt"] = {"s": time.perf_counter() - t}
-        return logits, int(x.c0.shape[0])
-
     reset_launches()
-    for rep, caches in enumerate(("cold", "warm")):
-        for S, emb, inter in zip(sizes, embs, inters):
-            torch.cuda.reset_peak_memory_stats()
-            before = dict(KERNEL_LAUNCHES)
-            log: dict = {}
-            logits, chunks = answer(emb, log)
-            want = inter["logits"]
-            err = float(np.max(np.abs(logits - want)))
-            emit({"phase": "forward", "S": S, "chunks": chunks,
-                  "plaintext_caches": caches,
-                  "request_s": sum(v["s"] for v in log.values()),
-                  "stages": log,
-                  "kernel_launches": {k: KERNEL_LAUNCHES[k] - before[k]
-                                      for k in KERNEL_LAUNCHES},
-                  "argmax": int(np.argmax(logits)),
-                  "golden_argmax": int(np.argmax(want)),
-                  "max_abs_logit_err": err,
-                  "max_memory_allocated_gb":
-                      torch.cuda.max_memory_allocated() / 2 ** 30})
-            if not np.all(np.isfinite(logits)) or \
-                    np.argmax(logits) != np.argmax(want) or not err <= 0.05:
-                raise AssertionError(f"S={S}: logits {logits} vs golden "
-                                     f"{want} (max err {err})")
+    for caches in ("cold", "warm"):
+        for emb, inter in zip(embs, inters):
+            _request("forward", circ, emb, inter["logits"], caches)
     launches = dict(KERNEL_LAUNCHES)
     with _shape_census() as calls:
-        trace, runs = _device_breakdown(lambda: answer(embs[0], {}))
+        trace, runs = _device_breakdown(lambda: _answer(circ, embs[0], {}))
     emit({"phase": "forward_trace", "S": sizes[0], "plaintext_caches": "warm",
           **trace, "launch_shapes": _by_shape(calls, runs)})
     return launches
 
 
 # ---------------------------------------------------------------------------
+# phases 5 and 6
 
 
-PHASES = ("card", "kernels", "keyswitch", "forward")
+def _boot_setup(cfg, circuit: bool = False):
+    """The linformer-boot-w context, keys for the bootstrap's rotations
+    (with `circuit`, also the packed circuit's) and conjugation, an
+    evaluator and a Bootstrapper; with the set-up's seconds and key
+    memory."""
+    import torch
+    from fhe_linformer_tpu_torch.boot.bootstrap import Bootstrapper
+    from fhe_linformer_tpu_torch.ckks.context import Context
+    from fhe_linformer_tpu_torch.ckks.evaluator import Evaluator
+    from fhe_linformer_tpu_torch.ckks.keys import generate_keys
+    from fhe_linformer_tpu_torch.config import get
+    ctx = Context(get("linformer-boot-w").ckks)
+    t0 = time.perf_counter()
+    boot_rots = Bootstrapper.rotations_for(ctx.cfg.n, cfg)
+    plan_s = time.perf_counter() - t0
+    rots = tuple(sorted(set(boot_rots) | set(
+        _rotations(ctx.cfg.slots) if circuit else ())))
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    keys = generate_keys(ctx, rotations=rots, conj=True)
+    torch.cuda.synchronize()
+    keygen_s = time.perf_counter() - t0
+    key_gb = (torch.cuda.memory_allocated() - mem0) / 2 ** 30
+    ev = Evaluator(ctx, keys)
+    t0 = time.perf_counter()
+    booter = Bootstrapper(ev, cfg)
+    info = {"basis": len(ctx.basis), "boot_rotation_keys": len(boot_rots),
+            "rotation_keys": len(rots), "conjugation_key": True,
+            "rotations_for_s": plan_s, "keygen_s": keygen_s,
+            "key_memory_gb": key_gb,
+            "bootstrapper_setup_s": time.perf_counter() - t0,
+            "bs": booter.bs,
+            "cts_diagonals": [len(d) for d in booter.cts_diags],
+            "stc_diagonals": [len(d) for d in booter.stc_diags]}
+    return ev, booter, info
+
+
+def phase_bootstrap():
+    """tools/boot_full.py on the port: the wide production bootstrap
+    (scale_boost 4) of 4 ciphertexts dropped to one limb, run twice (first,
+    warm); precision through the host decrypt; a traced warm bootstrap.
+    Fails unless the output has at least 23 limbs and 6.5 bits."""
+    import torch
+    from fhe_linformer_tpu_torch.boot.bootstrap import BootConfig
+    from fhe_linformer_tpu_torch.utils.timing import (KERNEL_LAUNCHES,
+                                                      approx_error_log2,
+                                                      reset_launches)
+    ev, booter, info = _boot_setup(BootConfig.wide_production(scale_boost=4))
+    batch = 4
+    m = np.random.default_rng(3).uniform(-0.9, 0.9, (batch, ev.ctx.cfg.slots))
+    low = ev.drop_to(ev.encrypt(m, batch=True), 1)
+    torch.cuda.synchronize()
+    reset_launches()
+    runs = []
+    for label in ("first", "warm"):
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        out = booter.bootstrap(low)
+        torch.cuda.synchronize()
+        runs.append({"run": label, "s": time.perf_counter() - t,
+                     "max_memory_allocated_gb":
+                         torch.cuda.max_memory_allocated() / 2 ** 30})
+    launches = dict(KERNEL_LAUNCHES)
+    prec = approx_error_log2(m, np.real(ev.decrypt_host(out)))
+    with _shape_census() as calls:
+        trace, traced = _device_breakdown(lambda: booter.bootstrap(low))
+    emit({"phase": "bootstrap", **info, "batch": batch,
+          "scale_boost": booter.cfg.scale_boost, "runs": runs,
+          "out_nl": out.nl, "precision_bits": prec,
+          "kernel_launches_per_bootstrap": {k: v / 2
+                                            for k, v in launches.items()},
+          "reference": REFERENCE_BOOT})
+    emit({"phase": "bootstrap_trace", "batch": batch, **trace,
+          "launch_shapes": _by_shape(calls, traced)})
+    # the JAX record's 23 limbs predate its fused Chebyshev nodes, which
+    # save one level: the current code (and the port) leave 24
+    if out.nl < REFERENCE_BOOT["out_nl"] or not prec >= 6.5:
+        raise AssertionError(f"bootstrap gave nl {out.nl} at {prec} bits")
+    return launches
+
+
+def phase_boot_forward(sizes=(128, 700)):
+    """The production path: the bootstrapped packed Linformer with
+    bench_layer.py main_packed's boot settings, answering S = 128 (cold,
+    warm) and S = 700 (warm), then one traced warm S = 128 request.  Fails
+    unless each request matches golden; prints its bootstrapped ciphertexts
+    beside the JAX package's records (3 and 13)."""
+    import torch
+    from fhe_linformer_tpu_torch.boot.bootstrap import BootConfig
+    from fhe_linformer_tpu_torch.models import golden
+    from fhe_linformer_tpu_torch.models.circuit_packed import PackedLinformer
+    from fhe_linformer_tpu_torch.utils.timing import (KERNEL_LAUNCHES,
+                                                      reset_launches)
+    ev, booter, info = _boot_setup(BootConfig.wide_production(),
+                                   circuit=True)
+    w = golden.random_weights(d=128, k_lin=32, d_ffn=512, n_classes=20,
+                              max_seq=max(sizes) + 4, seed=3, scale=0.3)
+    embs = {S: np.random.default_rng(0).normal(0, 0.3, (S - 1, 128))
+            for S in sizes}
+    params, inters = _calibrated(golden, w, list(embs.values()), degree=119,
+                                 tanh_degree=247)
+    want = {S: i["logits"] for S, i in zip(sizes, inters)}
+    circ = PackedLinformer(ev, w, params, bs=16)
+    emit({"phase": "boot_forward_setup", **info,
+          "scale_boost": booter.cfg.scale_boost,
+          "memory_allocated_gb": torch.cuda.memory_allocated() / 2 ** 30})
+    reset_launches()
+    for S, caches in ((sizes[0], "cold"), (sizes[0], "warm"),
+                      (sizes[1], "warm")):
+        ref = {"reference_bootstraps": REFERENCE_BOOTSTRAPS[S]}
+        if S == 128:
+            ref["reference_keyswitches"] = REFERENCE_KEYSWITCHES_S128
+        _request("boot_forward", circ, embs[S], want[S], caches,
+                 boot=booter, input_nl=12, **ref)
+    launches = dict(KERNEL_LAUNCHES)
+    with _shape_census() as calls:
+        trace, runs = _device_breakdown(
+            lambda: _answer(circ, embs[sizes[0]], {}, booter, 12))
+    emit({"phase": "boot_forward_trace", "S": sizes[0],
+          "plaintext_caches": "warm", **trace,
+          "launch_shapes": _by_shape(calls, runs)})
+    return launches
+
+
+# ---------------------------------------------------------------------------
+
+
+PHASES = ("card", "kernels", "keyswitch", "forward", "bootstrap",
+          "boot_forward")
+PATHS = {"forward": phase_forward, "bootstrap": phase_bootstrap,
+         "boot_forward": phase_boot_forward}
 
 
 def main(argv=None) -> int:
@@ -603,26 +828,27 @@ def main(argv=None) -> int:
             Context(get("linformer-boot-w").ckks))
     if "keyswitch" in only:
         phase_keyswitch()
-    if "forward" in only:
-        launches = phase_forward()
+    paths = {name: run() for name, run in PATHS.items() if name in only}
     if set(only) != set(PHASES):
         return 0
-    missing = [k for k, v in launches.items() if v <= 0]
-    if missing:
-        raise AssertionError(f"kernels never launched on the main path: "
-                             f"{missing}")
+    for name, counts in paths.items():
+        missing = [k for k in KERNELS if counts[k] <= 0]
+        if missing:
+            raise AssertionError(f"kernels never launched on the {name} "
+                                 f"path: {missing}")
     copied = [r["shape"] for r in kernel_rows if r["kernel"] == "ntt_inv"
               and not r["read_in_place"]]
     if copied:
         raise AssertionError(f"K2 got a copy, not the slice, at {copied}")
     emit({"kernels": [
         {"name": k, "route": "cuda", "source": SOURCES[k],
-         "replaces": REPLACES[k], "launches": launches[k],
+         "replaces": REPLACES[k],
+         "launches": sum(counts[k] for counts in paths.values()),
          "max_abs_err": main_shapes[k]["max_abs_err"],
          "ms": main_shapes[k]["ms"], "plain_ms": main_shapes[k]["plain_ms"],
          "bound_ms": main_shapes[k]["bound_ms"],
          "bound_by": main_shapes[k]["bound_by"], "library_ms": None}
-        for k in ("ntt_fwd", "ntt_inv", "base_convert")]})
+        for k in KERNELS]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -165,6 +165,10 @@ class Context:
         """Automorphism exponent for a rotation by `rot` slots."""
         return int(pow(5, rot % self.cfg.slots, 2 * self.cfg.n))
 
+    def conj_t(self) -> int:
+        """Automorphism exponent of complex conjugation (X -> X^-1)."""
+        return 2 * self.cfg.n - 1
+
     def galois_perm(self, t: int) -> torch.Tensor:
         """Eval-domain gather index: new_eval[k] = old_eval[perm[k]]."""
         if t not in self._galois_perm:

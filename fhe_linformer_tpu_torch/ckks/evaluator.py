@@ -2,11 +2,11 @@
 rotations and the hybrid key switch, on one device.
 
 The subset of the JAX package's `ckks/evaluator.py` that the block-major
-Linformer forward reaches, computing what its jitted cores compute (each
-returns canonical residues, so results are bit-identical given the same
-inputs).  Running scale lives on the host wrapper.  Heavy ops process at
-most HEAVY_CHUNK ciphertexts at a time to bound the key switch's
-intermediates (~12x the ciphertext volume).
+Linformer forward and the bootstrap reach, computing what its jitted cores
+compute (each returns canonical residues, so results are bit-identical
+given the same inputs).  Running scale lives on the host wrapper.  Heavy
+ops process at most HEAVY_CHUNK ciphertexts at a time to bound the key
+switch's intermediates (~12x the ciphertext volume).
 
 Every key switch funnels through `_keyswitch_many`: inverse NTT of the
 input (kernel K2), digit decomposition by fused base conversion (K3) and
@@ -309,19 +309,25 @@ class Evaluator:
         nl = min(a.nl, b.nl)
         return self.drop_to(a, nl), self.drop_to(b, nl)
 
-    def mul_double_sub(self, a: Ciphertext, b: Ciphertext,
-                       c: Ciphertext) -> Ciphertext:
+    def mul_double_sub(self, a: Ciphertext, b: Ciphertext, c: Ciphertext,
+                       wide: bool = False) -> Ciphertext:
         """2*a*b - c (the Chebyshev T_{a+b} node): relinearized product,
-        doubling, rescale, and c's scale-matched subtraction.  c must sit at
-        least one level above the output."""
+        doubling, rescale (two with `wide`, the paired working scale), and
+        c's scale-matched subtraction.  c must sit at least one level above
+        the output."""
         ctx = self.ctx
         a, b = self._align_mult(a, b)
         nl = a.nl
         _COUNTS.count("ctct_mult", _nct(a))
         _COUNTS.count("keyswitch", _nct(a))
-        _COUNTS.count("rescale", 2 * _nct(a))
-        s_out = a.scale * b.scale / float(ctx.qs[nl - 1])
-        nl_out = nl - 1
+        s_prod = a.scale * b.scale
+        if wide:
+            nl_out = nl - 2
+            s_out = s_prod / float(ctx.qs[nl - 1]) / float(ctx.qs[nl - 2])
+        else:
+            nl_out = nl - 1
+            s_out = s_prod / float(ctx.qs[nl - 1])
+        _COUNTS.count("rescale", (3 if wide else 2) * _nct(a))
         assert c.nl >= nl_out + 1, (c.nl, nl_out)
         c = self.drop_to(c, nl_out + 1)
         # c's scale-matching constant (the inlined `adjust`)
@@ -333,43 +339,53 @@ class Evaluator:
         vc = ctx.tensor((v_c % qs_c).astype(np.int32))
         ks = ctx.ks_tables(nl)
         relin = self._require_keys("mul/relin").relin
-        plan = ctx.rescale_tables(nl)
+        plans = [ctx.rescale_tables(m) for m in range(nl, nl_out, -1)]
         plan_c = ctx.rescale_tables(nl_out + 1)
         qc = ctx.mod(limbs_c)
 
         def core(a0, a1, b0, b1, e0, e1):
             c0, c1 = _mul2_tail(ctx, a0, a1, b0, b1, relin, ks)
-            c0, c1 = _rescale_body(ctx, c0, c1, plan)
+            for plan in plans:
+                c0, c1 = _rescale_body(ctx, c0, c1, plan)
             f0, f1 = _rescale_body(ctx, mulmod(e0, vc, qc),
                                    mulmod(e1, vc, qc), plan_c)
             return submod(c0, f0, plan_c.qrem), submod(c1, f1, plan_c.qrem)
         c0, c1 = self._batched(core, (a.c0, a.c1, b.c0, b.c1, c.c0, c.c1))
         return Ciphertext(c0, c1, nl_out, s_out)
 
-    def square_double_minus_one(self, a: Ciphertext) -> Ciphertext:
+    def square_double_minus_one(self, a: Ciphertext,
+                                wide: bool = False) -> Ciphertext:
         """2*a^2 - 1 (the Chebyshev T_{2m} node): relinearized square,
-        doubling, rescale and the -1."""
+        doubling, rescale (two with `wide`) and the -1."""
         ctx = self.ctx
         nl = a.nl
-        assert nl >= 2
         _COUNTS.count("ctct_mult", _nct(a))
         _COUNTS.count("keyswitch", _nct(a))
-        _COUNTS.count("rescale", _nct(a))
+        _COUNTS.count("rescale", (2 if wide else 1) * _nct(a))
         ks = ctx.ks_tables(nl)
         relin = self._require_keys("mul/relin").relin
-        plan = ctx.rescale_tables(nl)
-        s_out = a.scale * a.scale / float(ctx.qs[nl - 1])
-        qs = np.asarray([ctx.basis[i] for i in ctx.limb_idx(nl - 1)], np.int64)
+        s_prod = a.scale * a.scale
+        if wide:
+            assert nl >= 3
+            s_out = s_prod / float(ctx.qs[nl - 1]) / float(ctx.qs[nl - 2])
+            nl_out = nl - 2
+        else:
+            assert nl >= 2
+            s_out = s_prod / float(ctx.qs[nl - 1])
+            nl_out = nl - 1
+        plans = [ctx.rescale_tables(m) for m in range(nl, nl_out, -1)]
+        qs = np.asarray([ctx.basis[i] for i in ctx.limb_idx(nl_out)], np.int64)
         v = int(round(s_out))
         assert 0 < v < 1 << 62
         m1 = ctx.tensor(((-v) % qs).reshape(-1, 1).astype(np.int32))
 
         def core(a0, a1):
             c0, c1 = _mul2_tail(ctx, a0, a1, a0, a1, relin, ks)
-            c0, c1 = _rescale_body(ctx, c0, c1, plan)
-            return addmod(c0, m1, plan.qrem), c1
+            for plan in plans:
+                c0, c1 = _rescale_body(ctx, c0, c1, plan)
+            return addmod(c0, m1, plans[-1].qrem), c1
         c0, c1 = self._batched(core, (a.c0, a.c1))
-        return Ciphertext(c0, c1, nl - 1, s_out)
+        return Ciphertext(c0, c1, nl_out, s_out)
 
     # ------------------------------------------------------------------
     # rotations
@@ -401,9 +417,17 @@ class Evaluator:
         """Cyclic slot rotation: out slot j = in slot (j + r) mod slots."""
         if r % self.ctx.cfg.slots == 0:
             return ct
+        return self._galois(ct, self._perm(r), self._rot_key(r))
+
+    def conjugate(self, ct: Ciphertext) -> Ciphertext:
+        """Complex conjugation of every slot (the automorphism X -> X^-1)."""
+        ck = self._require_keys("conjugate").conj
+        assert ck is not None, "no conjugation key"
+        return self._galois(ct, self.ctx.galois_perm(self.ctx.conj_t()), ck)
+
+    def _galois(self, ct: Ciphertext, perm, key: KSKey) -> Ciphertext:
         _COUNTS.count("rotation", _nct(ct))
         _COUNTS.count("keyswitch", _nct(ct))
-        key, perm = self._rot_key(r), self._perm(r)
         ks = self.ctx.ks_tables(ct.nl)
         c0, c1 = self._batched(
             lambda a0, a1: _galois_core(self.ctx, a0, a1, perm, key, ks),

@@ -1,11 +1,11 @@
 """Key material and key generation.
 
 Sampling is host numpy from `default_rng(cfg.seed)` in the JAX package's
-exact order (ternary secret, public key, relinearization key, then the
-rotation keys in the order given), and each key's uniform `a` halves come
-from their own named seed (`seeded_uniform_eval`), so the key arrays equal
-the JAX package's for the same config.  The polynomial arithmetic (NTTs,
-products) runs on the context's device.
+exact order (ternary secret, public key, relinearization key, the rotation
+keys in the order given, then the conjugation key), and each key's uniform
+`a` halves come from their own named seed (`seeded_uniform_eval`), so the
+key arrays equal the JAX package's for the same config.  The polynomial
+arithmetic (NTTs, products) runs on the context's device.
 """
 
 from __future__ import annotations
@@ -42,11 +42,13 @@ class KSKey:
 
 @dataclass
 class KeySet:
-    """Everything the evaluator needs; rotation keys keyed by slot shift."""
+    """Everything the evaluator needs; rotation keys keyed by slot shift,
+    and the conjugation key the bootstrap needs."""
     sk: SecretKey | None
     pk: PublicKey
     relin: KSKey
     rot: dict[int, KSKey]
+    conj: KSKey | None = None
 
 
 def seeded_uniform_eval(seed, qs, ndig: int, n: int) -> np.ndarray:
@@ -147,16 +149,23 @@ class KeyGenerator:
 
     def rotation_key(self, sk: SecretKey, rot: int) -> KSKey:
         """Key switching tau_t(s) -> s for a rotation by `rot` slots."""
-        t = self.ctx.galois_t(rot)
+        return self._galois_key(sk, self.ctx.galois_t(rot))
+
+    def conjugation_key(self, sk: SecretKey) -> KSKey:
+        """Key switching tau_{2n-1}(s) -> s (complex conjugation)."""
+        return self._galois_key(sk, self.ctx.conj_t())
+
+    def _galois_key(self, sk: SecretKey, t: int) -> KSKey:
         s_rot = sk.eval_full[:, self.ctx.galois_perm(t)]
         return self._ks_key(sk, s_rot, tag=(1, t))
 
 
-def generate_keys(ctx: Context, rotations=(), keep_secret: bool = True
-                  ) -> KeySet:
+def generate_keys(ctx: Context, rotations=(), conj: bool = False,
+                  keep_secret: bool = True) -> KeySet:
     kg = KeyGenerator(ctx)
     sk = kg.secret_key()
     pk = kg.public_key(sk)
     relin = kg.relin_key(sk)
     rot = {r: kg.rotation_key(sk, r) for r in rotations}
-    return KeySet(sk if keep_secret else None, pk, relin, rot)
+    ck = kg.conjugation_key(sk) if conj else None
+    return KeySet(sk if keep_secret else None, pk, relin, rot, ck)

@@ -29,14 +29,16 @@ def weights_from_numpy(arrays: dict) -> LinformerWeights:
 
 
 def keys_from_numpy(ctx: Context, sk_coeffs, sk_eval, pk_p0, pk_p1,
-                    relin: tuple, rot: dict) -> KeySet:
-    """Key arrays -> KeySet.  relin: (b, a); rot: {shift: (b, a)}, each
-    half (ndig, num_q + k_sp, N)."""
+                    relin: tuple, rot: dict, conj: tuple | None = None
+                    ) -> KeySet:
+    """Key arrays -> KeySet.  relin, conj: (b, a); rot: {shift: (b, a)},
+    each half (ndig, num_q + k_sp, N)."""
     ks = lambda ba: KSKey(_res(ctx, ba[0]), _res(ctx, ba[1]))
     return KeySet(
         sk=SecretKey(np.asarray(sk_coeffs, np.int8), _res(ctx, sk_eval)),
         pk=PublicKey(_res(ctx, pk_p0), _res(ctx, pk_p1)),
-        relin=ks(relin), rot={int(r): ks(ba) for r, ba in rot.items()})
+        relin=ks(relin), rot={int(r): ks(ba) for r, ba in rot.items()},
+        conj=None if conj is None else ks(conj))
 
 
 def ciphertext_from_numpy(ctx: Context, c0, c1, nl: int,

@@ -1,7 +1,8 @@
 """Packed homomorphic linear algebra over CKKS slots: the subset of the JAX
-package's `linalg/packed.py` that the block-major circuit calls (masks,
-rotate-accumulate trees, batched interleave/deinterleave, the RE weight
-layout and the BSGS diagonal transform on the double-hoisted combo).
+package's `linalg/packed.py` that the block-major circuit and the bootstrap
+call: masks, rotate-accumulate trees, batched interleave/deinterleave, the
+RE weight layout, and the BSGS diagonal transform on the double-hoisted
+combo with its four rescale modes.
 
 Layout conventions over slots = nb * d:
   expanded:  slot[d*j + i] = v[j]   (value j fills block j)
@@ -138,7 +139,9 @@ class PackedOps:
     # -- BSGS diagonal transform on the double-hoisted combo -------------------
 
     def bsgs_diag_transform(self, ct: Ciphertext, diags: dict[int, np.ndarray],
-                            bs: int) -> Ciphertext:
+                            bs: int, scale: float | None = None,
+                            double_rescale: bool = False,
+                            rescale_mode: str | None = None) -> Ciphertext:
         """y_i = sum_k diags[k][i] * x[(i+k) mod slots]: BSGS over a sparse
         diagonal set with offsets decomposed stride-aware as
         k = stride*(g*bs + j).  The decomposition runs once; stage 1 (per
@@ -146,8 +149,26 @@ class PackedOps:
         group; each group accumulates plaintext-weighted rows with one lazy
         mod-down; giant shifts without a dedicated key compose
         (rotate_any).  Plaintexts are level-independent coefficient
-        vectors at the working scale, cached per diagonal."""
+        vectors, cached per diagonal.
+
+        rescale_mode (double_rescale=True means "double"), with qd, qd2
+        the top two primes:
+          "single" - plaintexts at `scale` (delta), drop 1
+          "double" - plaintexts at qd*qd2, drop 2, scale out = scale in
+          "raise"  - plaintexts at qd*qd2, drop 1, scale out = scale in * qd2
+                     (enters the bootstrap's paired working scale)
+          "lower"  - plaintexts at qd, drop 2, scale out = scale in / qd2
+                     (leaves it)"""
         ev = self.ev
+        mode = rescale_mode or ("double" if double_rescale else "single")
+        qd = float(ev.ctx.qs[ct.nl - 1])
+        qd2 = float(ev.ctx.qs[ct.nl - 2]) if ct.nl >= 2 else 1.0
+        if mode in ("double", "raise"):
+            scale = qd * qd2
+        elif mode == "lower":
+            scale = qd
+        else:
+            scale = scale or ev.ctx.delta
         stride = self._diag_stride(diags.keys(), self.slots)
         by_giant: dict[int, dict[int, np.ndarray]] = {}
         for k, d in diags.items():
@@ -164,7 +185,7 @@ class PackedOps:
             items = []
             for j, d in sorted(js.items()):
                 dk = np.roll(np.asarray(d), g * bs * stride)
-                cp = ev.encode_coeff_cached((id(diags), g, j), dk)
+                cp = ev.encode_coeff_cached((id(diags), g, j), dk, scale=scale)
                 items.append((j * stride, cp))
             groups.append((g * bs * stride, items))
         if stage1 is not None and ev.has_rotation_keys(gs for gs, _ in groups):
@@ -177,7 +198,16 @@ class PackedOps:
                 inner = ev.combo_stage2(ct, stage1, items, baby_shifts, ks)
                 rot = ev.rotate_any(inner, gshift) if gshift else inner
                 acc = rot if acc is None else ev.add(acc, rot)
-        return ev.rescale(acc)
+        acc = ev.rescale(acc)
+        if mode == "double":
+            acc = ev.rescale(acc)
+            acc.scale = ct.scale        # exact by construction
+        elif mode == "raise":
+            acc.scale = ct.scale * qd2  # qd cancelled by the one rescale
+        elif mode == "lower":
+            acc = ev.rescale(acc)
+            acc.scale = ct.scale / qd2
+        return acc
 
     @staticmethod
     def _diag_stride(offsets, slots: int) -> int:

@@ -4,8 +4,10 @@ Every tensor lives matrix-packed: one ciphertext carries nb = slots/d
 tokens (slot[d*t + i] = X[t, i]).  Q/K/V/WO/FFN projections are single
 BSGS block-matmuls on the double-hoisted rotation combo; the FFN's block
 outputs are the GELU containers.  Sequences longer than nb run as chunks
-of nb tokens, looped one chunk at a time through the attention.  This port
-runs the forward without bootstrapping (a deep enough chain instead).
+of nb tokens, looped one chunk at a time through the attention.  With a
+Bootstrapper (`boot=`), refreshes fire where the levels run short: mid-exp
+in the attention, before the GELU, and at the pooler's entry (one
+ciphertext per chunk each, so 3 per request at 128 tokens).
 
 Layout contracts (d = 128, nb = slots/d):
   block-major  slot[d*t + i] = X[t, i]       (tokens t, dims i)
@@ -20,7 +22,7 @@ import numpy as np
 from ..ckks.ciphertext import Ciphertext
 from ..ckks.evaluator import Evaluator
 from ..linalg.blockmat import BlockOps
-from ..poly.gadgets import Gadgets
+from ..poly.gadgets import Gadgets, relu_degree_depth
 from .circuit import CircuitParams, _stack
 from .golden import LinformerWeights, client_preprocess
 
@@ -39,19 +41,19 @@ class PackedLinformer:
 
     # -- client-side input preparation ---------------------------------
 
-    def encrypt_inputs(self, emb: np.ndarray):
-        """Token embeddings (S, d) -> (x, XE, XF) block-major ciphertexts.
-        x: (C, ...) chunks of <= nb tokens; XE/XF: single cts with k_lin
-        valid token-blocks."""
+    def encrypt_inputs(self, emb: np.ndarray, nl: int | None = None):
+        """Token embeddings (S, d) -> (x, XE, XF) block-major ciphertexts at
+        nl limbs (default: the whole chain).  x: (C, ...) chunks of <= nb
+        tokens; XE/XF: single cts with k_lin valid token-blocks."""
         w, ev, bops = self.w, self.ev, self.bops
         x_in, X_E, X_F = client_preprocess(w, emb)
-        return (ev.encrypt(bops.pack_chunks(x_in), batch=True),
-                ev.encrypt(bops.pack(X_E)), ev.encrypt(bops.pack(X_F)),
-                x_in.shape[0])
+        return (ev.encrypt(bops.pack_chunks(x_in), batch=True, nl=nl),
+                ev.encrypt(bops.pack(X_E), nl=nl),
+                ev.encrypt(bops.pack(X_F), nl=nl), x_in.shape[0])
 
     # -- attention ------------------------------------------------------
 
-    def attention(self, x_ct, xe_ct, xf_ct, S_total):
+    def attention(self, x_ct, xe_ct, xf_ct, S_total, boot=None):
         """Scores + poly-softmax + value mix + WO (+ residual), block-major
         in and out."""
         ev, bops, ops, w, p = self.ev, self.bops, self.ops, self.w, self.p
@@ -77,7 +79,12 @@ class PackedLinformer:
         scores = _stack(scs)                               # (C, ...)
         del Q, prod, sc, scs
 
-        scores = self.g.eval_exp(scores, pow8=p.exp_pow8)
+        # depth after the Taylor: power raise (3 when pow8) + inverse +
+        # the mix/WO/affine tail (~7): the mid-exp refresh's threshold
+        need = (3 if p.exp_pow8 else 0) + \
+            relu_degree_depth(p.inv_degree) + 7
+        scores = self.g.eval_exp(scores, pow8=p.exp_pow8, boot=boot,
+                                 boot_below=need)
         kp = 1 << (k_lin - 1).bit_length()
         if kp != k_lin:
             # non-pow2 k_lin: exp(0)=1 in the padding lanes would pollute
@@ -122,19 +129,26 @@ class PackedLinformer:
 
     # -- FFN -------------------------------------------------------------
 
-    def ffn(self, x_ct: Ciphertext) -> Ciphertext:
+    def ffn(self, x_ct: Ciphertext, boot=None) -> Ciphertext:
         """d -> d_ffn (nblk block-matmuls) -> GELU -> d (block-matmul sum).
         The nblk up-projection outputs are the GELU containers: one batched
-        Chebyshev serves all S x d_ffn activations."""
+        Chebyshev serves all S x d_ffn activations.  `boot` refreshes the
+        input when the GELU's depth would not fit, so the same batch is
+        refreshed once before the up-projection."""
         ev, bops, w, p = self.ev, self.bops, self.w, self.p
         d = self.d
         nblk = w.W1.shape[0] // d
+        if boot is not None and \
+                x_ct.nl - 1 < relu_degree_depth(p.gelu_degree) + 3:
+            x_ct = boot.refresh(x_ct)
         ups = [bops.matmul(x_ct, w.W1[k * d:(k + 1) * d], f"W1_{k}",
                            bias=w.B1[k * d:(k + 1) * d], w_scale=p.gelu_clip)
                for k in range(nblk)]
         h = _stack(ups)                       # (nblk, C, ...) block-major
         h = self.g.eval_gelu(h, -1.0, 1.0, mult=p.gelu_clip,
                              degree=p.gelu_degree)
+        if boot is not None and h.nl < 4:
+            h = boot.refresh(h)             # backstop (normally skipped)
         acc = None
         for k in range(nblk):
             hb = h.with_data(h.c0[k], h.c1[k])
@@ -147,14 +161,18 @@ class PackedLinformer:
 
     # -- pooler + classifier ---------------------------------------------
 
-    def pooler_classifier(self, x_ct: Ciphertext) -> Ciphertext:
+    def pooler_classifier(self, x_ct: Ciphertext, boot=None) -> Ciphertext:
         """tanh pooler on CLS + linear head.  CLS is block 0 of chunk 0;
-        the head returns logits at slots [0, n_cls)."""
+        the head returns logits at slots [0, n_cls).  `boot` refreshes at
+        the entry (the extract/pool/tanh/classify chain needs ~16 levels)
+        and before the tanh when its depth would not fit."""
         ev, ops, w, p = self.ev, self.ops, self.w, self.p
         d, nb = self.d, self.bops.nb
         c0 = x_ct
         if c0.c0.dim() > 2:
             c0 = c0.with_data(c0.c0[0], c0.c1[0])
+        if boot is not None and c0.nl < 5:
+            c0 = boot.refresh(c0)
         pt_b0 = ev.encode_cached(("mask_block0", d), ops.mask_block(0),
                                  nl=c0.nl)
         cls_rep = ops.repeat(ev.mul_plain(c0, pt_b0), nb, d)  # cls tiled
@@ -167,6 +185,9 @@ class PackedLinformer:
         bp = np.repeat(np.pad(w.bp * p.tanh_scale, (0, nb - len(w.bp))), d)
         pooled = ev.add_plain(pooled, ev.encode(bp, nl=pooled.nl,
                                                 scale=pooled.scale))
+        if boot is not None and \
+                pooled.nl - 1 < relu_degree_depth(p.tanh_degree) + 4:
+            pooled = boot.refresh(pooled)
         pooled = self.g.eval_tanh(pooled, -1.0, 1.0, mult=p.tanh_scale,
                                   degree=p.tanh_degree)
         # clean to expanded (t[j] fills block j), then RE-style classifier
@@ -186,18 +207,21 @@ class PackedLinformer:
 
     # -- layer / forward -------------------------------------------------
 
-    def encoder_layer(self, x_ct, xe, xf, S_total):
+    def encoder_layer(self, x_ct, xe, xf, S_total, boot=None):
         w = self.w
-        attn = self.attention(x_ct, xe, xf, S_total)
+        attn = self.attention(x_ct, xe, xf, S_total, boot=boot)
         attn = self.affine(attn, w.a1, w.b1, w.c1, S_total)
-        y = self.ffn(attn)
+        y = self.ffn(attn, boot=boot)
         x2m, ym = self.ev.match(attn, y)
         return self.affine(self.ev.add(x2m, ym), w.a2, w.b2, w.c2, S_total)
 
-    def forward(self, emb: np.ndarray) -> Ciphertext:
-        x_ct, xe, xf, S_total = self.encrypt_inputs(emb)
-        x = self.encoder_layer(x_ct, xe, xf, S_total)
-        return self.pooler_classifier(x)
+    def forward(self, emb: np.ndarray, boot=None,
+                input_nl: int | None = None) -> Ciphertext:
+        """Encrypt the embeddings at input_nl limbs, run the layer and the
+        pooler/classifier, refreshing through `boot` where needed."""
+        x_ct, xe, xf, S_total = self.encrypt_inputs(emb, nl=input_nl)
+        x = self.encoder_layer(x_ct, xe, xf, S_total, boot=boot)
+        return self.pooler_classifier(x, boot=boot)
 
     def decrypt_logits(self, out: Ciphertext) -> np.ndarray:
         vals = np.real(np.asarray(self.ev.decrypt(out)))

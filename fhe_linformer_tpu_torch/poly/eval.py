@@ -4,8 +4,8 @@ and Chebyshev bases.
 Scale discipline: every linear combination routes each term through a
 constant multiply whose plaintext scale is solved so that all terms land on
 one exact (level, scale) target, with the running scale tracked in host
-floats.  (The JAX package's `wide=True` paired-scale mode is used only by
-the bootstrap and is not ported yet.)
+floats.  `wide=True` (the bootstrap's EvalMod) runs every product at the
+paired working scale delta^2.
 """
 
 from __future__ import annotations
@@ -21,23 +21,62 @@ from .cheb import cheb_divmod, chebyshev_fit
 
 
 class PolyEvaluator:
-    def __init__(self, ev: Evaluator):
+    """wide=True runs ct x ct chains at the paired working scale
+    (~delta^2 = 2^52): every product drops two limbs and every scale
+    normalization targets delta^2, so the per-op key-switch and rescale
+    noise sits at 2^-43 relative instead of 2^-17 (the bootstrap's EvalMod
+    amplifies it).  Costs two limbs per multiplicative level."""
+
+    def __init__(self, ev: Evaluator, wide: bool = False):
         self.ev = ev
+        self.wide = wide
 
     @property
     def anchor(self) -> float:
-        return self.ev.ctx.delta
+        d = self.ev.ctx.delta
+        return d * d if self.wide else d
+
+    def _clamp(self, out: Ciphertext) -> Ciphertext:
+        """Wide drift clamp: a paired product multiplies the scale by
+        s/(qd*qd2) and the T_{2m} chain squares the drift, so one
+        conditional level per offending product holds it within 1.5 bits
+        of the anchor."""
+        if self.wide and out.nl > 1 and \
+                abs(math.log2(out.scale / self.anchor)) > 1.5:
+            out = self.ev.adjust(out, out.nl - 1, self.anchor)
+        return out
+
+    def _mul(self, a: Ciphertext, b: Ciphertext) -> Ciphertext:
+        ev = self.ev
+        if not self.wide:
+            return ev.mul(a, b)
+        return self._clamp(ev.rescale(ev.rescale(ev.mul(a, b, rescale=False))))
+
+    def _match(self, a: Ciphertext, b: Ciphertext):
+        """ev.match, but the equal-level reconciliation lands on the anchor
+        scale (ev.match lands on delta)."""
+        ev = self.ev
+        if a.nl == b.nl and abs(a.scale / b.scale - 1.0) >= 1e-9:
+            nl = a.nl - 1
+            return ev.adjust(a, nl, self.anchor), ev.adjust(b, nl, self.anchor)
+        return ev.match(a, b)
 
     def _mul2sub(self, a: Ciphertext, b: Ciphertext,
                  c: Ciphertext) -> Ciphertext:
-        """2ab - c (the T_{a+b} node), fused; falls back to the
-        mul/match/sub chain when c sits too deep for the inlined match."""
+        """2ab - c (the T_{a+b} node), fused, with the wide drift clamp;
+        falls back to the mul/match/sub chain when c sits too deep for the
+        inlined match."""
         ev = self.ev
-        if c.nl >= min(a.nl, b.nl):
-            return ev.mul_double_sub(a, b, c)
-        prod = ev.mul_scalar_int(ev.mul(a, b), 2)
-        prod, tm = ev.match(prod, c)
+        nl_out = min(a.nl, b.nl) - (2 if self.wide else 1)
+        if c.nl >= nl_out + 1:
+            return self._clamp(ev.mul_double_sub(a, b, c, wide=self.wide))
+        prod = ev.mul_scalar_int(self._mul(a, b), 2)
+        prod, tm = self._match(prod, c)
         return ev.sub(prod, tm)
+
+    def _sq2m1(self, y: Ciphertext) -> Ciphertext:
+        """2y^2 - 1 (the T_{2m} node), fused, with the wide drift clamp."""
+        return self._clamp(self.ev.square_double_minus_one(y, wide=self.wide))
 
     # ------------------------------------------------------------------
     # linear combination with exact (nl, scale) targeting
@@ -89,7 +128,7 @@ class PolyEvaluator:
         pows = {1: x}
         for i in range(2, k + 1):
             a = i // 2
-            pows[i] = self.ev.mul(pows[a], pows[i - a])
+            pows[i] = self._mul(pows[a], pows[i - a])
         return pows
 
     def eval_poly(self, x: Ciphertext, coeffs) -> Ciphertext:
@@ -110,8 +149,8 @@ class PolyEvaluator:
 
     def eval_chebyshev_series(self, y: Ciphertext, coeffs) -> Ciphertext:
         """sum_i c_i T_i(y), y expected in [-1, 1].  Entry scale is
-        normalized to exactly Delta: the T_{2i} = 2T_i^2-1 recursion squares
-        any scale excess."""
+        normalized to exactly the anchor: the T_{2i} = 2T_i^2-1 recursion
+        squares any scale excess."""
         ev = self.ev
         if abs(math.log2(y.scale / self.anchor)) > 0.02:
             y = ev.adjust(y, y.nl - 1, self.anchor)
@@ -122,12 +161,12 @@ class PolyEvaluator:
         # T_{2i} = 2 T_i^2 - 1 ; T_{i+j} = 2 T_i T_j - T_{i-j}
         for i in range(2, k + 1):
             a, b = i // 2, i - i // 2
-            babies[i] = ev.square_double_minus_one(babies[a]) if a == b else \
+            babies[i] = self._sq2m1(babies[a]) if a == b else \
                 self._mul2sub(babies[a], babies[b], babies[b - a])
         giants = {k: babies[k]}
         m = k
         while m < deg:
-            giants[2 * m] = ev.square_double_minus_one(giants[m])
+            giants[2 * m] = self._sq2m1(giants[m])
             m *= 2
 
         def rec(c: np.ndarray) -> Ciphertext:
@@ -144,9 +183,9 @@ class PolyEvaluator:
             while 2 * m <= d:
                 m *= 2
             q, r = cheb_divmod(c, m)
-            left = ev.mul(rec_or_const(q), giants[m])
+            left = self._mul(rec_or_const(q), giants[m])
             if np.any(r != 0.0):
-                left, right = ev.match(left, rec(np.asarray(r)))
+                left, right = self._match(left, rec(np.asarray(r)))
                 return ev.add(left, right)
             return left
 

@@ -36,11 +36,21 @@ class Gadgets:
         self.ev = ev
         self.poly = PolyEvaluator(ev)
 
-    def eval_exp(self, ct: Ciphertext, pow8: bool = True) -> Ciphertext:
+    def eval_exp(self, ct: Ciphertext, pow8: bool = True, boot=None,
+                 boot_below: int = 0) -> Ciphertext:
         """pow8=True: deg-6 Taylor of e^x then x^8 by three squarings
         (approximates e^(8x)); pow8=False: the bare deg-6 Taylor (what the
-        golden model computes)."""
+        golden model computes).
+
+        boot (a Bootstrapper): refresh before the Taylor when fewer than 6
+        levels are left (its product tree needs ~4 plus the rescale floor),
+        and after it when fewer than `boot_below` usable levels remain for
+        the chain downstream (the mid-exp refresh)."""
+        if boot is not None and ct.nl < 6:
+            ct = boot.bootstrap(ct)
         t = self.poly.eval_poly(ct, EXP_TAYLOR_DEG6)
+        if boot is not None and t.nl - 1 < boot_below:
+            t = boot.bootstrap(t)
         if pow8:
             for _ in range(3):
                 t = self.ev.mul(t, t)
