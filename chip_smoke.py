@@ -8,12 +8,16 @@ Phases, each printing one JSON line:
                 torch/CUDA versions, and the nvcc build of every kernel in
                 fhe_linformer_tpu_torch/csrc (with ptxas registers/spills)
   2. kernels  - each CUDA kernel against its plain PyTorch version on the
-                card at every shape the main path sends it (K2 through the
-                port's `ntt.inv`, on the limb slices it reads in place):
-                exact equality, median time, the plain version's time, and
-                the least time the card could take (`bound`)
-  3. keyswitch - one Galois key switch at N = 2^15, 24 limbs, dnum 3,
-                batch 4: the yardstick for later speed work
+                card at every shape the main paths send it (K2 through the
+                port's `ntt.inv`, on the limb slices it reads in place; the
+                ring-2^8 kernels of the CLI phase): exact equality, median
+                time, the plain version's time, and the least time the card
+                could take (`bound`)
+  3. keyswitch - the CLI `bench` case: one Galois key switch at N = 2^15,
+                24 limbs, dnum 3, batch 4 (the yardstick for later speed
+                work); rotate_hoisted of the same ciphertext by 3 shifts,
+                bit for bit against the port's CPU path, ms per shift
+                beside a rotation's
   4. forward  - the block-major encrypted Linformer (d = 128, k_lin = 32,
                 d_ffn = 512, 20 classes, random weights of seed 3) on the
                 linformer-boot-w parameters without bootstrapping, answering
@@ -35,7 +39,18 @@ Phases, each printing one JSON line:
                 answering S = 128 (cold, warm) and S = 700 (6 chunks),
                 each checked against the golden model, then one traced warm
                 S = 128 request
-  7. the `kernels` line: every kernel with its launches over phases 4-6
+  7. token_forward - config 5: the per-token circuit (EncryptedLinformer)
+                with two bootstrapped layers on preset multi-layer, the
+                second layer's E/F compression homomorphic, S = 32; keys for
+                the CLI's rotation set through save_keys -> load_keys;
+                cold and warm requests with seconds, key switches and
+                bootstrapped ciphertexts per layer and stage, peak memory,
+                the host decrypt against the 2-layer golden; a traced warm
+                request; one per-token single-layer request at S = 128
+  8. cli      - `python -m fhe_linformer_tpu_torch.cli` keygen, infer
+                (--keys-dir, --cls-only) and golden as subprocesses at
+                preset tiny on the card: exit codes and argmax
+  9. the `kernels` line: every kernel with its launches over phases 4-7
 
 It ends with {"ok": true, "device": {...}}.  Any failure raises and exits
 non-zero before that line.  There is no CPU path: the script refuses to run
@@ -79,6 +94,7 @@ REFERENCE_BOOTSTRAPS = {128: 3, 700: 13}
 REFERENCE_KEYSWITCHES_S128 = {"attention": 1383, "ffn_gelu": 482,
                               "pooler_classifier": 196}
 REFERENCE_BOOT = {"out_nl": 23, "precision_bits": 7.03, "rotation_keys": 46}
+BOOT_CHUNK_CONFIG5 = 8   # ciphertexts per bootstrap in phase 7
 
 
 def emit(obj) -> None:
@@ -269,9 +285,8 @@ def _inv_case(tables, lead, limbs, start, gen, reps, stop=None):
             "bound_ms": b_ms, "bound_by": b_by}
 
 
-def _bc_case(bc, g_valid, B, prefolded, gen, reps):
+def _bc_case(bc, g_valid, B, prefolded, gen, reps, n=1 << LOG2N):
     from fhe_linformer_tpu_torch.ops import basecvt
-    n = 1 << LOG2N
     qs = bc.gq[:g_valid].long().cpu().tolist()
     x = random_residues((B, g_valid, n), qs, gen, "cuda")
     if prefolded:        # the mod-down hands in w = x * fold mod p
@@ -289,7 +304,7 @@ def _bc_case(bc, g_valid, B, prefolded, gen, reps):
     muls = B * n * ((0 if prefolded else 3 * g_valid) + 6 * bc.nd * tgt)
     nbytes = 4 * B * n * (g_valid + bc.nd * tgt)
     b_ms, b_by = bound(nbytes, muls, tc_ops)
-    return {"kernel": "base_convert", "B": B, "G": bc.nd * bc.alpha,
+    return {"kernel": "base_convert", "n": n, "B": B, "G": bc.nd * bc.alpha,
             "alpha": bc.alpha, "g_valid": g_valid, "nd": bc.nd, "tgt": tgt,
             "prefolded": prefolded, "max_abs_err": err,
             "ms": cuda_ms(lambda: basecvt.base_convert_cuda(x, bc, prefolded),
@@ -299,10 +314,11 @@ def _bc_case(bc, g_valid, B, prefolded, gen, reps):
             "bound_ms": b_ms, "bound_by": b_by}
 
 
-def phase_kernels(ctx):
+def phase_kernels(ctx, tiny):
     """Each kernel against its plain version on the card, at the shapes the
-    main path sends it.  Returns the main-shape numbers per kernel for the
-    final `kernels` line, and every row."""
+    main paths send it (`tiny`: the CLI phase's context, ring 2^8).
+    Returns the main-shape numbers per kernel for the final `kernels`
+    line, and every row."""
     import torch
     from fhe_linformer_tpu_torch.ops.ntt import NttTables
     gen = torch.Generator(device="cuda")
@@ -383,7 +399,33 @@ def phase_kernels(ctx):
             _inv_case(ctx.ntt, (8,), lo10.act_idx, 0, gen, 20),
             _bc_case(lo10.bc, 10, 8, False, gen, 20),
             _bc_case(lo10.md, ctx.k_sp, MODDOWN_BATCH, True, gen, 20),
-            _bc_case(ctx.ks_tables(9).bc, 9, 8, False, gen, 20)]
+            _bc_case(ctx.ks_tables(9).bc, 9, 8, False, gen, 20),
+            # the per-token path's most launched classes (phase 7's
+            # launch_shapes): K1 on a batch-8 decomposition at level 45
+            # (1,560 rows: 3 digits x 8 x 65) and on 30 rows; K2 on the
+            # rescale of 16 ciphertexts (32 rows of one limb, in place) and
+            # a batch-8 decomposition input at level 45; K3's batch-1 key
+            # switch at level 21 and batch-8 ones at levels 17 and 22
+            _fwd_case(ctx.ntt, 8, None, gen, 10, limb_map=em45.dig_limbs),
+            _fwd_case(ctx.ntt, 1, 30, gen, 20),
+            _inv_case(ctx.ntt, (2, 16), ctx.ks_tables(30).act_idx, 29, gen,
+                      20),
+            _inv_case(ctx.ntt, (8,), em45.act_idx, 0, gen, 20),
+            _bc_case(ctx.ks_tables(21).bc, 21, 1, False, gen, 20),
+            _bc_case(ctx.ks_tables(17).bc, 17, 8, False, gen, 20),
+            _bc_case(low.bc, 22, 8, False, gen, 20)]
+    # the CLI phase's ring 2^8 (preset tiny): the one-block-per-row K1/K2
+    # on a batch-8 key switch's rows at the top level (59 + 8 limbs, the
+    # digit map), the rescale's top limb read in place, and K3's
+    # decomposition and mod-down
+    tk = tiny.ks_tables(tiny.num_q)
+    rows += [_fwd_case(tiny.ntt, 8, len(tiny.basis), gen, 20),
+             _fwd_case(tiny.ntt, 8, None, gen, 10, limb_map=tk.dig_limbs),
+             _inv_case(tiny.ntt, (8,), tk.act_idx, 0, gen, 20),
+             _inv_case(tiny.ntt, (2, 8), tk.act_idx, tiny.num_q - 1, gen, 20),
+             _bc_case(tk.bc, tiny.num_q, 8, False, gen, 20, n=tiny.cfg.n),
+             _bc_case(tk.md, tiny.k_sp, MODDOWN_BATCH, True, gen, 20,
+                      n=tiny.cfg.n)]
     main = {}
     for r in rows:
         emit({"phase": "kernels", **r})
@@ -395,21 +437,31 @@ def phase_kernels(ctx):
 # phase 3
 
 
+def _keys_to(keys, device):
+    """A KeySet with every tensor copied to `device`."""
+    from fhe_linformer_tpu_torch.ckks.keys import (KeySet, KSKey, PublicKey,
+                                                   SecretKey)
+    ks = lambda k: None if k is None else KSKey(k.b.to(device),
+                                                k.a.to(device), k.a_seed)
+    return KeySet(SecretKey(keys.sk.coeffs, keys.sk.eval_full.to(device)),
+                  PublicKey(keys.pk.p0.to(device), keys.pk.p1.to(device)),
+                  ks(keys.relin), {r: ks(k) for r, k in keys.rot.items()},
+                  ks(keys.conj))
+
+
 def phase_keyswitch():
-    from fhe_linformer_tpu_torch.ckks import evaluator as evm
-    from fhe_linformer_tpu_torch.ckks.context import CKKSConfig, Context
+    """The CLI's `bench` case (fhe_linformer_tpu_torch.bench): one Galois
+    key switch at N = 2^15, 24 limbs, dnum 3, batch 4, timed here behind
+    the device sleep; then rotate_hoisted on the same ciphertext for a few
+    shifts, held bit for bit against the port's CPU path, with its ms per
+    shift beside rotate's."""
+    import torch
+    from fhe_linformer_tpu_torch.bench import keyswitch_case
+    from fhe_linformer_tpu_torch.ckks.context import Context
     from fhe_linformer_tpu_torch.ckks.evaluator import Evaluator
-    from fhe_linformer_tpu_torch.ckks.keys import generate_keys
-    cfg = CKKSConfig(n=1 << LOG2N, scale_bits=26, num_scaling=23, dnum=3)
-    ctx = Context(cfg)
-    keys = generate_keys(ctx, rotations=(1,))
-    ev = Evaluator(ctx, keys)
-    z = np.random.default_rng(0).uniform(-1, 1, (4, cfg.slots))
-    ct = ev.encrypt(z, batch=True)
-    ks = ctx.ks_tables(ct.nl)
-    perm = ctx.galois_perm(ctx.galois_t(1))
-    ms = cuda_ms(lambda: evm._galois_core(ctx, ct.c0, ct.c1, perm,
-                                          keys.rot[1], ks), reps=20)
+    shifts = (1, 2, 3)
+    switch, ev, ct, z = keyswitch_case("cuda", rotations=shifts)
+    ms = cuda_ms(switch, reps=20)
     # a fresh encryption already decrypts with ~7e-3 max slot error here
     # (dense ternary secret, scale 2^26); the switch may add little to it
     fresh = float(np.abs(np.real(ev.decrypt(ct)) - z).max())
@@ -418,9 +470,26 @@ def phase_keyswitch():
     if not err < 2 * fresh:
         raise AssertionError(f"rotation by 1 decrypts with error {err}, "
                              f"a fresh encryption with {fresh}")
-    emit({"phase": "keyswitch", "n": cfg.n, "limbs": ct.nl, "dnum": cfg.dnum,
-          "batch": 4, "ms": ms, "keyswitches_per_s": 4 / ms * 1e3,
-          "fresh_decrypt_err": fresh, "rotate_decrypt_err": err})
+    hoisted = ev.rotate_hoisted(ct, shifts)
+    t = time.perf_counter()
+    cpu = Evaluator(Context(ev.ctx.cfg, "cpu"), _keys_to(ev.keys, "cpu"))
+    ct_cpu = ct.with_data(ct.c0.cpu(), ct.c1.cpu())
+    want = cpu.rotate_hoisted(ct_cpu, shifts)
+    cpu_s = time.perf_counter() - t
+    for r in shifts:
+        if not (torch.equal(hoisted[r].c0.cpu(), want[r].c0)
+                and torch.equal(hoisted[r].c1.cpu(), want[r].c1)):
+            raise AssertionError(f"rotate_hoisted by {r} differs from the "
+                                 "CPU path")
+    hoisted_ms = cuda_ms(lambda: ev.rotate_hoisted(ct, shifts), reps=10)
+    emit({"phase": "keyswitch", "n": ev.ctx.cfg.n, "limbs": ct.nl,
+          "dnum": ev.ctx.cfg.dnum, "batch": ct.c0.shape[0], "ms": ms,
+          "keyswitches_per_s": ct.c0.shape[0] / ms * 1e3,
+          "fresh_decrypt_err": fresh, "rotate_decrypt_err": err,
+          "rotate_ms": cuda_ms(lambda: ev.rotate(ct, 1), reps=20),
+          "rotate_hoisted_shifts": list(shifts),
+          "rotate_hoisted_ms_per_shift": hoisted_ms / len(shifts),
+          "rotate_hoisted_equals_cpu": True, "cpu_path_s": cpu_s})
 
 
 # ---------------------------------------------------------------------------
@@ -462,12 +531,13 @@ def _device_breakdown(run):
     """One traced call of run() under torch.profiler: device time per
     kernel of the port, the other kernels' time (the plain torch ops), and
     the share of the wall time the device sat idle.  Also returns each
-    port kernel's launch times (ms) in the order they ran."""
+    port kernel's launch times (ms) in the order they ran.  Only device
+    activity is recorded: the host-side op events would double what the
+    profiler keeps and parses (minutes at config 5's 0.8 M launches)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t = time.perf_counter()
         run()
         torch.cuda.synchronize()
@@ -798,12 +868,301 @@ def phase_boot_forward(sizes=(128, 700)):
 
 
 # ---------------------------------------------------------------------------
+# phases 7 and 8
+
+
+# the stages of the per-token circuit that _stage_log times
+TOKEN_STAGES = ("attention", "wrap_tokens", "affine", "refresh",
+                "unwrap_tokens", "ffn", "ef_project", "pooler_classifier")
+
+
+@contextlib.contextmanager
+def _stage_log(circ, boot):
+    """While the block runs, times each outermost call of the circuit's
+    stage methods (and of boot.refresh) behind synchronizes, with the key
+    switches and bootstrapped ciphertexts it counted, under
+    layer<i>.<stage> (ef_project under the layer it feeds); each
+    encoder_layer call under layer<i> with its peak memory.  Yields the
+    dict it fills."""
+    import torch
+    from fhe_linformer_tpu_torch.utils.timing import GLOBAL_TIMERS
+    log: dict = {}
+    state = {"layer": 0, "depth": 0}
+    saved = {}
+
+    def counted(key, fn, layer_total=False):
+        def run(*a, **kw):
+            if layer_total:
+                state["layer"] += 1
+                key_ = f"layer{state['layer']}"
+                torch.cuda.reset_peak_memory_stats()
+            elif state["depth"]:
+                return fn(*a, **kw)
+            else:
+                nxt = key == "ef_project"
+                key_ = key if key == "pooler_classifier" else \
+                    f"layer{state['layer'] + nxt}.{key}"
+                state["depth"] += 1
+            torch.cuda.synchronize()
+            c0 = dict(GLOBAL_TIMERS.counts)
+            t = time.perf_counter()
+            try:
+                out = fn(*a, **kw)
+                torch.cuda.synchronize()
+            finally:
+                if not layer_total:
+                    state["depth"] -= 1
+            row = log.setdefault(key_, {"s": 0.0, "calls": 0, "keyswitch": 0,
+                                        "bootstrap": 0})
+            row["s"] += time.perf_counter() - t
+            row["calls"] += 1
+            for k in ("keyswitch", "bootstrap"):
+                row[k] += GLOBAL_TIMERS.counts[k] - c0.get(k, 0)
+            row["out_nl"] = out.nl
+            if layer_total:
+                row["max_memory_allocated_gb"] = \
+                    torch.cuda.max_memory_allocated() / 2 ** 30
+            return out
+        return run
+
+    targets = [(circ, name) for name in TOKEN_STAGES if name != "refresh"]
+    targets += [(boot, "refresh"), (circ, "encoder_layer")]
+    for obj, name in targets:
+        saved[(id(obj), name)] = (obj, name, getattr(obj, name))
+        setattr(obj, name, counted(name, getattr(obj, name),
+                                   layer_total=name == "encoder_layer"))
+    try:
+        yield log
+    finally:
+        for obj, name, fn in saved.values():
+            delattr(obj, name)            # the class's method again
+
+
+def _token_request(circ, boot, emb, want, extra_layers, caches, input_nl,
+                   **extra):
+    """One request through EncryptedLinformer.forward, decrypted on the
+    host in float64; emits its line and fails unless the logits match
+    golden (argmax equal, max |err| <= 0.05)."""
+    import torch
+    from fhe_linformer_tpu_torch.utils.timing import GLOBAL_TIMERS
+    torch.cuda.reset_peak_memory_stats()
+    c0 = dict(GLOBAL_TIMERS.counts)
+    with _stage_log(circ, boot) as log:
+        t = time.perf_counter()
+        out = circ.forward(emb, extra_layers=extra_layers, boot=boot,
+                           input_nl=input_nl)
+        torch.cuda.synchronize()
+        forward_s = time.perf_counter() - t
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    t = time.perf_counter()
+    vals = np.real(circ.ev.decrypt_host(out))
+    logits = vals[: len(want) * circ.ops.d: circ.ops.d]
+    decrypt_s = time.perf_counter() - t
+    err = float(np.max(np.abs(logits - want)))
+    line = {"phase": "token_forward", "S": emb.shape[0] + 1,
+            "layers": 1 + len(extra_layers), "plaintext_caches": caches,
+            "request_s": forward_s + decrypt_s, "forward_s": forward_s,
+            "decrypt_host_s": decrypt_s, "stages": log,
+            "keyswitches": GLOBAL_TIMERS.counts["keyswitch"]
+            - c0.get("keyswitch", 0),
+            "bootstraps": GLOBAL_TIMERS.counts["bootstrap"]
+            - c0.get("bootstrap", 0),
+            "argmax": int(np.argmax(logits)),
+            "golden_argmax": int(np.argmax(want)),
+            "max_abs_logit_err": err, "max_memory_allocated_gb": peak,
+            **extra}
+    emit(line)
+    if not np.all(np.isfinite(logits)) or \
+            np.argmax(logits) != np.argmax(want) or not err <= 0.05:
+        raise AssertionError(f"token_forward S={line['S']}: logits {logits} "
+                             f"vs golden {want} (max err {err})")
+    return line
+
+
+def _keys_equal(a, b) -> bool:
+    import torch
+    pairs = [(a.relin, b.relin), (a.conj, b.conj)] + \
+        [(a.rot[r], b.rot[r]) for r in b.rot]
+    return sorted(a.rot) == sorted(b.rot) and \
+        torch.equal(a.pk.p0, b.pk.p0) and torch.equal(a.pk.p1, b.pk.p1) and \
+        torch.equal(a.sk.eval_full, b.sk.eval_full) and \
+        all(torch.equal(x.b, y.b) and torch.equal(x.a, y.a) for x, y in pairs)
+
+
+def phase_token_forward(S=32, with_s128=True):
+    """Config 5 (preset multi-layer: two bootstrapped layers, the second's
+    E/F compression homomorphic) on the per-token circuit at d = 128,
+    k_lin = 32, d_ffn = 512, 20 classes, S = 32 tokens, with
+    tools/config5_run.py's weights and calibration; keys for the CLI's
+    rotation set through save_keys -> load_keys; one cold and one warm
+    request, checked against the 2-layer golden; one traced warm request.
+    With `with_s128`, one per-token single-layer request at S = 128 with
+    phase 6's settings (same chain and keys: linformer-boot-w's scheme
+    parameters are multi-layer's)."""
+    import tempfile
+    import torch
+    from fhe_linformer_tpu_torch.boot.bootstrap import BootConfig, Bootstrapper
+    from fhe_linformer_tpu_torch.ckks.context import Context
+    from fhe_linformer_tpu_torch.ckks.evaluator import Evaluator
+    from fhe_linformer_tpu_torch.ckks.keys import generate_keys
+    from fhe_linformer_tpu_torch.cli import _preset_rotations
+    from fhe_linformer_tpu_torch.config import get
+    from fhe_linformer_tpu_torch.io.serialize import load_keys, save_keys
+    from fhe_linformer_tpu_torch.models import golden
+    from fhe_linformer_tpu_torch.models.circuit import (CircuitParams,
+                                                        EncryptedLinformer)
+    from fhe_linformer_tpu_torch.utils.timing import (KERNEL_LAUNCHES,
+                                                      reset_launches)
+    preset = get("multi-layer")
+    ctx = Context(preset.ckks)
+    rots = _preset_rotations(preset, ctx)
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    made = generate_keys(ctx, rotations=rots, conj=True)
+    torch.cuda.synchronize()
+    keygen_s = time.perf_counter() - t0
+    key_gb = (torch.cuda.memory_allocated() - mem0) / 2 ** 30
+    with tempfile.TemporaryDirectory() as kd:
+        t0 = time.perf_counter()
+        save_keys(kd, made, include_secret=True)
+        save_s = time.perf_counter() - t0
+        disk = sum(os.path.getsize(os.path.join(kd, f))
+                   for f in os.listdir(kd))
+        files = len(os.listdir(kd))
+        t0 = time.perf_counter()
+        keys = load_keys(kd, ctx)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+    if not _keys_equal(keys, made):
+        raise AssertionError("the loaded keystore differs from the keys "
+                             "generated")
+    del made
+    torch.cuda.empty_cache()
+    ev = Evaluator(ctx, keys)
+    t0 = time.perf_counter()
+    # 4 blocks x 32 tokens fill one 128-piece container exactly, and the
+    # FFN packs only above that (the JAX package's rule): its GELU and
+    # refresh run on 128 ciphertexts, bootstrapped 8 at a time (a
+    # bootstrap's working set grows ~3.5 GB per ciphertext: 128 at once
+    # wanted 17 GB more than was free, 16 at a time 3 GB more)
+    booter = Bootstrapper(ev, BootConfig.wide_production(),
+                          chunk=BOOT_CHUNK_CONFIG5)
+    boot_setup_s = time.perf_counter() - t0
+    emit({"phase": "token_forward_setup", "preset": preset.name,
+          "basis": len(ctx.basis), "rotation_keys": len(rots),
+          "conjugation_key": True, "keygen_s": keygen_s,
+          "key_memory_gb": key_gb, "keystore_files": files,
+          "keystore_bytes": disk, "save_keys_s": save_s,
+          "load_keys_s": load_s, "loaded_equals_generated": True,
+          "bootstrapper_setup_s": boot_setup_s,
+          "bootstrap_chunk": booter.chunk,
+          "memory_allocated_gb": torch.cuda.memory_allocated() / 2 ** 30})
+
+    w1 = golden.random_weights(d=128, k_lin=32, d_ffn=512, n_classes=20,
+                               max_seq=S + 4, seed=3, scale=0.3)
+    w2 = golden.random_weights(d=128, k_lin=32, d_ffn=512, n_classes=20,
+                               max_seq=S + 4, seed=7, scale=0.3)
+    emb = np.random.default_rng(0).normal(0, 0.3, (S - 1, 128))
+    # tools/config5_run.py: calibrated on the 2-layer golden
+    _, inter = golden.forward(w1, emb, return_intermediates=True,
+                              extra_layers=[w2])
+    rowsum = inter["exp"].sum(-1)
+    params = CircuitParams(
+        inv_range=(0.3 * rowsum.min(), 2.0 * rowsum.max()),
+        inv_degree=119, gelu_degree=119, tanh_degree=247,
+        gelu_clip=1.0 / (1.5 * np.abs(inter["norm1"] @ w1.W1.T
+                                      + w1.B1[None]).max()),
+        tanh_scale=1.0 / (1.5 * np.abs(inter["norm2"][:1] @ w1.Wp.T
+                                       + w1.bp[None]).max()),
+        exp_pow8=False)
+    circ = EncryptedLinformer(ev, w1, params)
+    reset_launches()
+    for caches in ("cold", "warm"):
+        _token_request(circ, booter, emb, inter["logits"], [w2], caches, 12,
+                       preset=preset.name)
+    launches = dict(KERNEL_LAUNCHES)
+    with _shape_census() as calls:
+        trace, runs = _device_breakdown(lambda: circ.forward(
+            emb, extra_layers=[w2], boot=booter, input_nl=12))
+    emit({"phase": "token_forward_trace", "S": S, "layers": 2,
+          "plaintext_caches": "warm", **trace,
+          "launch_shapes": _by_shape(calls, runs)})
+    if with_s128:
+        w = golden.random_weights(d=128, k_lin=32, d_ffn=512, n_classes=20,
+                                  max_seq=128 + 4, seed=3, scale=0.3)
+        e128 = np.random.default_rng(0).normal(0, 0.3, (127, 128))
+        p128, i128 = _calibrated(golden, w, [e128], degree=119,
+                                 tanh_degree=247)
+        circ = EncryptedLinformer(ev, w, p128)
+        before = dict(KERNEL_LAUNCHES)
+        _token_request(circ, booter, e128, i128[0]["logits"], [], "cold", 12,
+                       preset="linformer-boot-w",
+                       reference_keyswitches=16908, reference_bootstraps=7)
+        for k in launches:
+            launches[k] += KERNEL_LAUNCHES[k] - before[k]
+    return launches
+
+
+def phase_cli():
+    """The port's CLI as subprocesses on the card, at preset tiny
+    (tests/test_cli_e2e.py's flow): keygen to a keystore, infer from it
+    (CLS query only), golden; fails unless every exit code is 0 and the
+    encrypted argmax equals golden's on the CLS-only model."""
+    import tempfile
+    from fhe_linformer_tpu_torch.client import pipeline
+    from fhe_linformer_tpu_torch.io.weights import save_reference_weights
+    from fhe_linformer_tpu_torch.models import golden
+    root = os.path.dirname(os.path.abspath(__file__))
+    w = golden.random_weights(d=8, k_lin=4, d_ffn=32, n_classes=5,
+                              max_seq=12, seed=31, scale=0.3)
+    emb = np.random.default_rng(7).normal(0, 0.3, (3, 8))
+    want = golden.forward(w, emb, cls_only=True,
+                          return_intermediates=True)[1]["logits"]
+    runs = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        wd, sd, kd = (os.path.join(tmp, x) for x in ("w", "s", "k"))
+        save_reference_weights(wd, w)
+        pipeline.export_sample_embeddings(sd, emb)
+        io = ["--weights-dir", wd, "--sample-dir", sd]
+        for name, args in (
+                ("keygen", ["keygen", "--preset", "tiny", "--keys-dir", kd]),
+                ("infer", ["infer", "--preset", "tiny", "--keys-dir", kd,
+                           "--cls-only"] + io),
+                ("golden", ["golden", "--preset", "tiny"] + io)):
+            t = time.perf_counter()
+            r = subprocess.run([sys.executable, "-m", f"{PORT}.cli", *args],
+                               cwd=root, capture_output=True, text=True,
+                               timeout=300)
+            runs[name] = {"rc": r.returncode, "s": time.perf_counter() - t,
+                          "last_line": (r.stdout.strip().splitlines()
+                                        or [""])[-1][:2000]}
+            if r.returncode != 0:
+                emit({"phase": "cli", "runs": runs,
+                      "stderr": r.stderr[-2000:]})
+                raise AssertionError(f"cli {name} exited {r.returncode}")
+    enc = json.loads(runs["infer"]["last_line"])
+    gold = json.loads(runs["golden"]["last_line"])
+    err = float(np.max(np.abs(np.asarray(enc["logits"]) - want)))
+    emit({"phase": "cli", "runs": runs, "argmax": enc["pred"],
+          "cls_only_golden_argmax": int(np.argmax(want)),
+          "golden_cli_argmax": gold["pred"], "max_abs_logit_err": err,
+          "infer_kernel_launches": enc["kernel_launches"]})
+    if enc["pred"] != int(np.argmax(want)) or \
+            min(enc["kernel_launches"].values()) <= 0:
+        raise AssertionError(f"cli infer: argmax {enc['pred']} vs golden "
+                             f"{int(np.argmax(want))}, launches "
+                             f"{enc['kernel_launches']}")
+
+
+# ---------------------------------------------------------------------------
 
 
 PHASES = ("card", "kernels", "keyswitch", "forward", "bootstrap",
-          "boot_forward")
+          "boot_forward", "token_forward", "cli")
 PATHS = {"forward": phase_forward, "bootstrap": phase_bootstrap,
-         "boot_forward": phase_boot_forward}
+         "boot_forward": phase_boot_forward,
+         "token_forward": phase_token_forward}
 
 
 def main(argv=None) -> int:
@@ -825,10 +1184,12 @@ def main(argv=None) -> int:
         phase_card()
     if "kernels" in only:
         main_shapes, kernel_rows = phase_kernels(
-            Context(get("linformer-boot-w").ckks))
+            Context(get("linformer-boot-w").ckks), Context(get("tiny").ckks))
     if "keyswitch" in only:
         phase_keyswitch()
     paths = {name: run() for name, run in PATHS.items() if name in only}
+    if "cli" in only:
+        phase_cli()
     if set(only) != set(PHASES):
         return 0
     for name, counts in paths.items():
@@ -844,6 +1205,7 @@ def main(argv=None) -> int:
         {"name": k, "route": "cuda", "source": SOURCES[k],
          "replaces": REPLACES[k],
          "launches": sum(counts[k] for counts in paths.values()),
+         "launches_by_path": {p: counts[k] for p, counts in paths.items()},
          "max_abs_err": main_shapes[k]["max_abs_err"],
          "ms": main_shapes[k]["ms"], "plain_ms": main_shapes[k]["plain_ms"],
          "bound_ms": main_shapes[k]["bound_ms"],

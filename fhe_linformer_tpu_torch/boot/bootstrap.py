@@ -266,25 +266,29 @@ class Bootstrapper:
 
     def bootstrap(self, ct: Ciphertext, out_div: float = 1.0) -> Ciphertext:
         """Refresh a depleted ciphertext to the full chain minus the boot
-        depth.  Counts the real batch once; with `self.chunk` the batch
-        runs in parts of that many ciphertexts."""
-        GLOBAL_TIMERS.count("bootstrap", _nct(ct))
+        depth.  Counts the real batch once; with `self.chunk` the batch,
+        its leading axes flattened, runs in parts of that many ciphertexts
+        (each ciphertext's bootstrap is independent of the others)."""
+        count = _nct(ct)
+        GLOBAL_TIMERS.count("bootstrap", count)
         bc = self.chunk
-        lead = ct.c0.shape[:-2]
-        if not (bc and len(lead) == 1 and lead[0] > bc):
+        if not (bc and count > bc):
             return self._bootstrap_impl(ct, out_div)
+        lead, tail = tuple(ct.c0.shape[:-2]), tuple(ct.c0.shape[-2:])
+        flat = ct.with_data(ct.c0.reshape((count,) + tail),
+                            ct.c1.reshape((count,) + tail))
         outs = []
-        for s in range(0, lead[0], bc):
-            part = ct.with_data(ct.c0[s: s + bc], ct.c1[s: s + bc])
+        for s in range(0, count, bc):
+            part = flat.with_data(flat.c0[s: s + bc], flat.c1[s: s + bc])
             if part.c0.shape[0] < bc:          # pad: keep shapes uniform
-                z = torch.zeros((bc - part.c0.shape[0],) +
-                                tuple(part.c0.shape[1:]),
+                z = torch.zeros((bc - part.c0.shape[0],) + tail,
                                 dtype=part.c0.dtype, device=part.c0.device)
                 part = part.with_data(torch.cat([part.c0, z]),
                                       torch.cat([part.c1, z]))
             outs.append(self._bootstrap_impl(part, out_div))
-        return outs[0].with_data(torch.cat([o.c0 for o in outs])[: lead[0]],
-                                 torch.cat([o.c1 for o in outs])[: lead[0]])
+        unflat = lambda x: x[:count].reshape(lead + tuple(x.shape[-2:]))
+        return outs[0].with_data(unflat(torch.cat([o.c0 for o in outs])),
+                                 unflat(torch.cat([o.c1 for o in outs])))
 
     def _bootstrap_impl(self, ct: Ciphertext,
                         out_div: float = 1.0) -> Ciphertext:

@@ -1,12 +1,14 @@
 """Homomorphic evaluation: encode/encrypt/decrypt, arithmetic, rescale,
-rotations and the hybrid key switch, on one device.
+rotations (plain, hoisted, accumulated and the double-hoisted combo) and
+the hybrid key switch, on one device.
 
-The subset of the JAX package's `ckks/evaluator.py` that the block-major
-Linformer forward and the bootstrap reach, computing what its jitted cores
-compute (each returns canonical residues, so results are bit-identical
-given the same inputs).  Running scale lives on the host wrapper.  Heavy
-ops process at most HEAVY_CHUNK ciphertexts at a time to bound the key
-switch's intermediates (~12x the ciphertext volume).
+The counterpart of the JAX package's `ckks/evaluator.py`, computing what
+its jitted cores compute (each returns canonical residues, so results are
+bit-identical given the same inputs).  Running scale lives on the host
+wrapper.  Heavy ops process at most `heavy_chunk` ciphertexts at a time
+(the fused Chebyshev nodes `fused_chunk`) to bound the key switch's
+intermediates (~12x the ciphertext volume).  Not ported: the on-device
+slot decode and the sharded key switch.
 
 Every key switch funnels through `_keyswitch_many`: inverse NTT of the
 input (kernel K2), digit decomposition by fused base conversion (K3) and
@@ -21,15 +23,13 @@ import torch
 
 from ..ops import ntt
 from ..ops.basecvt import base_convert
-from ..ops.modarith import addmod, mulmod, submod
+from ..ops.modarith import addmod, mulmod, negmod, submod
 from ..ops.ntt import NttTables
 from ..utils.timing import GLOBAL_TIMERS as _COUNTS
 from .ciphertext import Ciphertext, CoeffPlaintext, Plaintext
 from .context import Context, LevelKS, RescalePlan
 from .encoding import Encoder, crt_lift_center
 from .keys import KeySet, KSKey
-
-HEAVY_CHUNK = 8      # ciphertexts per key-switching call
 
 
 def _nct(ct: Ciphertext) -> int:
@@ -38,13 +38,36 @@ def _nct(ct: Ciphertext) -> int:
 
 
 class Evaluator:
-    def __init__(self, ctx: Context, keys: KeySet):
+    """`heavy_chunk`: ciphertexts per key-switching call; `fused_chunk`:
+    the same for the fused Chebyshev nodes (None: heavy_chunk)."""
+
+    def __init__(self, ctx: Context, keys: KeySet, heavy_chunk: int = 8,
+                 fused_chunk: int | None = None):
         self.ctx = ctx
         self.keys = keys
+        self.heavy_chunk = heavy_chunk
+        self.fused_chunk = fused_chunk or heavy_chunk
         self.encoder = Encoder(ctx.cfg.n)
         self._enc_rng = np.random.default_rng(ctx.cfg.seed ^ 0x5EED)
         self._enc_cache: dict = {}
         self._host_ntt: dict[int, NttTables] = {}
+        self._sk_host: torch.Tensor | None = None
+        self._baby_stack = None
+
+    def prefetch_host_sk(self) -> None:
+        """Keep a host copy of the secret key's eval-domain residues, so
+        decrypt_host works after release_device_keys()."""
+        if self._sk_host is None and self.keys is not None \
+                and self.keys.sk is not None:
+            self._sk_host = self.keys.sk.eval_full.cpu()
+
+    def release_device_keys(self) -> None:
+        """Drop every key the evaluator holds (the host secret key is
+        copied first): afterwards only decrypt_host works, and any key
+        consuming op raises."""
+        self.prefetch_host_sk()
+        self.keys = None
+        self._baby_stack = None
 
     # ------------------------------------------------------------------
     # encode / encrypt / decrypt
@@ -55,24 +78,28 @@ class Evaluator:
         return torch.remainder(coeffs[..., None, :], self.ctx.mod(limbs)).int()
 
     def encode(self, values, nl: int | None = None, scale: float | None = None,
-               batch: bool = False) -> Plaintext:
-        """Slot values -> eval-domain plaintext at (nl, scale)."""
+               batch: bool = False, specials: bool = False) -> Plaintext:
+        """Slot values -> eval-domain plaintext at (nl, scale).  `specials`
+        encodes over the extended basis (nl actives, then the special
+        primes): only the rotation combo consumes such plaintexts."""
         ctx = self.ctx
         nl = ctx.num_q if nl is None else nl
         scale = ctx.delta if scale is None else scale
         vals = np.atleast_2d(np.asarray(values)) if batch else \
             np.asarray(values)[None]
         coeffs = np.stack([self.encoder.encode(v, scale) for v in vals])
-        limbs = ctx.limb_idx(nl)
+        limbs = ctx.limb_idx(nl, specials=specials)
         data = ntt.fwd(self._spread(ctx.tensor(coeffs), limbs), ctx.ntt, limbs)
         return Plaintext(data if batch else data[0], nl, scale)
 
     def encode_cached(self, key, values, nl: int | None = None,
-                      scale: float | None = None) -> Plaintext:
+                      scale: float | None = None,
+                      specials: bool = False) -> Plaintext:
         """encode() memoized by a caller-supplied stable key."""
-        k = (key, nl, scale)
+        k = (key, nl, scale, specials)
         if k not in self._enc_cache:
-            self._enc_cache[k] = self.encode(values, nl=nl, scale=scale)
+            self._enc_cache[k] = self.encode(values, nl=nl, scale=scale,
+                                             specials=specials)
         return self._enc_cache[k]
 
     def encode_coeff_cached(self, key, values,
@@ -151,7 +178,10 @@ class Evaluator:
         t = self._host_ntt[m]
         c0 = ct.c0[..., :m, :].cpu()
         c1 = ct.c1[..., :m, :].cpu()
-        s = self._require_keys("decrypt_host").sk.eval_full[:m].cpu()
+        self.prefetch_host_sk()
+        if self._sk_host is None:
+            raise RuntimeError("decrypt_host needs the secret key")
+        s = self._sk_host[:m]
         q = t.q.view(-1, 1)
         coeffs = ntt.inv_plain(addmod(c0, mulmod(c1, s, q), q), t,
                                tuple(range(m)))
@@ -166,8 +196,31 @@ class Evaluator:
 
     def _require_keys(self, what: str) -> KeySet:
         if self.keys is None:
-            raise RuntimeError(f"{what} needs keys")
+            raise RuntimeError(
+                f"{what} needs keys, but the evaluator holds none (none "
+                "given, or release_device_keys() was called): only "
+                "decrypt_host() works")
         return self.keys
+
+    # -- debug probes (they decrypt: the caller holds the secret key) -----
+
+    def probe(self, ct: Ciphertext, count: int = 8) -> np.ndarray:
+        return np.real(self.decrypt(ct))[..., :count]
+
+    def probe_expanded(self, ct: Ciphertext, stride: int,
+                       count: int = 8) -> np.ndarray:
+        """Slot j*stride for j < count (the expanded layout's values)."""
+        return np.real(self.decrypt_host(ct))[..., : count * stride: stride]
+
+    def probe_padded(self, ct: Ciphertext, padding: int,
+                     count: int = 8) -> np.ndarray:
+        """Every `padding`-th slot."""
+        return np.real(self.decrypt_host(ct))[..., : count * padding: padding]
+
+    def probe_min_max(self, ct: Ciphertext) -> tuple[float, float]:
+        """(min, max) over the real slots."""
+        vals = np.real(self.decrypt_host(ct))
+        return float(vals.min()), float(vals.max())
 
     # ------------------------------------------------------------------
     # arithmetic and level/scale management
@@ -226,6 +279,16 @@ class Evaluator:
         q = self.ctx.mod(self.ctx.limb_idx(a.nl))
         return a.with_data(submod(a.c0, b.c0, q), submod(a.c1, b.c1, q))
 
+    def add_many(self, cts: list[Ciphertext]) -> Ciphertext:
+        out = cts[0]
+        for ct in cts[1:]:
+            out = self.add(out, ct)
+        return out
+
+    def neg(self, ct: Ciphertext) -> Ciphertext:
+        q = self.ctx.mod(self.ctx.limb_idx(ct.nl))
+        return ct.with_data(negmod(ct.c0, q), negmod(ct.c1, q))
+
     def _pt_to(self, pt: Plaintext, nl: int) -> Plaintext:
         if pt.nl == nl:
             return pt
@@ -237,6 +300,12 @@ class Evaluator:
         assert abs(ct.scale / pt.scale - 1.0) < 1e-9
         q = self.ctx.mod(self.ctx.limb_idx(ct.nl))
         return ct.with_data(addmod(ct.c0, pt.data, q), ct.c1)
+
+    def sub_plain(self, ct: Ciphertext, pt: Plaintext) -> Ciphertext:
+        pt = self._pt_to(pt, ct.nl)
+        assert abs(ct.scale / pt.scale - 1.0) < 1e-9
+        q = self.ctx.mod(self.ctx.limb_idx(ct.nl))
+        return ct.with_data(submod(ct.c0, pt.data, q), ct.c1)
 
     def mul_plain(self, ct: Ciphertext, pt: Plaintext,
                   rescale: bool = True) -> Ciphertext:
@@ -273,17 +342,19 @@ class Evaluator:
                                self.ctx.rescale_tables(nl))
         return Ciphertext(c0, c1, nl - 1, ct.scale / float(self.ctx.qs[nl - 1]))
 
-    def _batched(self, core, arrays):
-        """core(*arrays) over chunks of at most HEAVY_CHUNK ciphertexts of
-        the broadcast leading batch (operands are broadcast first)."""
+    def _batched(self, core, arrays, chunk: int | None = None):
+        """core(*arrays) over chunks of at most `chunk` (heavy_chunk)
+        ciphertexts of the broadcast leading batch (operands are broadcast
+        first)."""
+        chunk = chunk or self.heavy_chunk
         shape = torch.broadcast_shapes(*(a.shape[:-2] for a in arrays))
         count = int(np.prod(shape, dtype=np.int64))
-        if count <= HEAVY_CHUNK and len(shape) <= 1:
+        if count <= chunk and len(shape) <= 1:
             return core(*arrays)
         flat = [a.expand(shape + a.shape[-2:]).reshape((count,) + a.shape[-2:])
                 for a in arrays]
-        outs = [core(*(f[s: s + HEAVY_CHUNK] for f in flat))
-                for s in range(0, count, HEAVY_CHUNK)]
+        outs = [core(*(f[s: s + chunk] for f in flat))
+                for s in range(0, count, chunk)]
         return tuple(torch.cat(o).reshape(shape + o[0].shape[-2:])
                      for o in zip(*outs))
 
@@ -350,7 +421,8 @@ class Evaluator:
             f0, f1 = _rescale_body(ctx, mulmod(e0, vc, qc),
                                    mulmod(e1, vc, qc), plan_c)
             return submod(c0, f0, plan_c.qrem), submod(c1, f1, plan_c.qrem)
-        c0, c1 = self._batched(core, (a.c0, a.c1, b.c0, b.c1, c.c0, c.c1))
+        c0, c1 = self._batched(core, (a.c0, a.c1, b.c0, b.c1, c.c0, c.c1),
+                               self.fused_chunk)
         return Ciphertext(c0, c1, nl_out, s_out)
 
     def square_double_minus_one(self, a: Ciphertext,
@@ -384,7 +456,7 @@ class Evaluator:
             for plan in plans:
                 c0, c1 = _rescale_body(ctx, c0, c1, plan)
             return addmod(c0, m1, plans[-1].qrem), c1
-        c0, c1 = self._batched(core, (a.c0, a.c1))
+        c0, c1 = self._batched(core, (a.c0, a.c1), self.fused_chunk)
         return Ciphertext(c0, c1, nl_out, s_out)
 
     # ------------------------------------------------------------------
@@ -531,6 +603,20 @@ class Evaluator:
             out = t if out is None else self.add(out, t)
         return out
 
+    def rotate_hoisted(self, ct: Ciphertext, rots) -> dict:
+        """{r: rotate(ct, r)} with the key-switch decomposition of ct.c1
+        computed once and permuted per shift (multi_rotate_stack).  Needs
+        a dedicated key per shift."""
+        slots = self.ctx.cfg.slots
+        rots = list(rots)
+        live = [r for r in rots if r % slots]
+        out = {r: ct for r in rots if r % slots == 0}
+        if live:
+            stk = self.multi_rotate_stack(ct, live)
+            out.update({r: stk.with_data(stk.c0[i], stk.c1[i])
+                        for i, r in enumerate(live)})
+        return {r: out[r] for r in rots}
+
     # ------------------------------------------------------------------
     # double-hoisted rotation combo (BSGS engine)
     # ------------------------------------------------------------------
@@ -539,6 +625,59 @@ class Evaluator:
         """The key-switch decomposition of ct.c1, shared by every rotation
         of a BSGS transform."""
         return _hoist_decompose(self.ctx, ct.c1, ks)
+
+    def rotate_combo(self, ct: Ciphertext, items) -> Ciphertext:
+        """sum_j pt_j * rotate(ct, r_j) with one decomposition and one lazy
+        mod-down of the accumulated inner products (double hoisting).
+        items: [(shift, plaintext)], the plaintexts CoeffPlaintexts or
+        encode(..., specials=True) eval plaintexts at a common scale.
+        Returns the un-rescaled sum at scale ct.scale * pt.scale."""
+        ks = self.ctx.ks_tables(ct.nl)
+        return self.combo_from_decomp(ct, _hoist_decompose(self.ctx, ct.c1, ks),
+                                      items, ks)
+
+    def combo_from_decomp(self, ct: Ciphertext, y_e, items,
+                          ks: LevelKS) -> Ciphertext:
+        """rotate_combo with a caller-held decomposition y_e of ct.c1."""
+        nl = ct.nl
+        slots = self.ctx.cfg.slots
+        rot_items = [(r, p) for r, p in items if r % slots != 0]
+        id_items = [(r, p) for r, p in items if r % slots == 0]
+        scale = items[0][1].scale
+        out = None
+        if rot_items:
+            _COUNTS.count("combo_rot", len(rot_items) * _nct(ct))
+            _COUNTS.count("keyswitch", _nct(ct))         # the one mod-down
+            for _, p in rot_items:
+                assert abs(p.scale / scale - 1.0) < 1e-12
+            stage1 = self.combo_stage1(ct, y_e, [r for r, _ in rot_items], ks)
+            a0q, a0e, a1e = self._stage2_sums(
+                stage1, list(range(len(rot_items))),
+                [p for _, p in rot_items], ks)
+            k = _mod_down(self.ctx, torch.stack((a0e, a1e)), ks)
+            out = Ciphertext(addmod(a0q, k[0], ks.q_act), k[1], nl,
+                             ct.scale * scale)
+        for _, p in id_items:
+            pq = self._pt_expand_q(p, ks) if isinstance(p, CoeffPlaintext) \
+                else Plaintext(p.data[..., :nl, :], nl, p.scale)
+            t = self.mul_plain(ct, pq, rescale=False)
+            out = t if out is None else self.add(out, t)
+        return out
+
+    def baby_key_stack(self, shifts, nl: int):
+        """(kb, ka): the rotation keys of `shifts` stacked, each (ndig,
+        nl + k, N) rows of level nl (actives, then specials), cached for
+        the last (shifts, nl) asked."""
+        key = (tuple(shifts), nl)
+        if self._baby_stack is not None and self._baby_stack[0] == key:
+            return self._baby_stack[1]
+        rows = torch.tensor(self.ctx.limb_idx(nl, specials=True),
+                            device=self.ctx.device)
+        keys = [self._rot_key(r) for r in shifts]
+        val = (torch.stack([k.b.index_select(1, rows) for k in keys]),
+               torch.stack([k.a.index_select(1, rows) for k in keys]))
+        self._baby_stack = (key, val)
+        return val
 
     def combo_stage1(self, ct: Ciphertext, y_e, shifts, ks: LevelKS):
         """Per-baby work shared by every giant group: the Galois
@@ -560,14 +699,26 @@ class Evaluator:
                        ks.act_idx)
         return Plaintext(data, ks.nl, p.scale)
 
+    def _ext_rows(self, pts, ks: LevelKS) -> torch.Tensor:
+        """(R, nl + k, N) eval rows over Q u P of the plaintexts `pts`:
+        coefficient plaintexts spread and transformed, extended-basis
+        eval plaintexts (encode(..., specials=True)) as they are."""
+        if isinstance(pts[0], CoeffPlaintext):
+            coeffs = torch.stack([p.coeffs for p in pts])
+            return ntt.fwd(self._spread(coeffs, ks.tgt_idx), self.ctx.ntt,
+                           ks.tgt_idx)
+        for p in pts:
+            assert p.data.shape[-2] == len(ks.tgt_idx), \
+                "rotation-combo plaintexts need encode(..., specials=True)"
+        return torch.stack([p.data for p in pts])
+
     def _stage2_sums(self, stage1, idx, pts, ks: LevelKS):
         """Plaintext-weighted sums of stage-1 rows `idx` for one giant
         group: (a0 over Q, t0-sum and t1-sum over Q u P)."""
         ctx = self.ctx
         c0ps, t0s, t1s = stage1
         nl = ks.nl
-        coeffs = torch.stack([p.coeffs for p in pts])
-        pt = ntt.fwd(self._spread(coeffs, ks.tgt_idx), ctx.ntt, ks.tgt_idx)
+        pt = self._ext_rows(pts, ks)
         pt = pt.view((len(pts),) + (1,) * (c0ps.dim() - 3) + pt.shape[1:])
         sel = torch.tensor(idx, device=ctx.device)
 

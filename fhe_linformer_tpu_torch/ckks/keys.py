@@ -34,10 +34,13 @@ class PublicKey:
 
 @dataclass
 class KSKey:
-    """One hybrid key-switch key (relinearization or one rotation) over the
-    full extended basis: (ndig, num_q + k_sp, N) int32 per half."""
+    """One hybrid key-switch key (relinearization, a rotation or the
+    conjugation) over the full extended basis: (ndig, num_q + k_sp, N)
+    int32 per half.  The uniform `a` halves come from the named seed
+    `a_seed`, so a keystore may hold the seed instead of them."""
     b: torch.Tensor
     a: torch.Tensor
+    a_seed: tuple | None = None
 
 
 @dataclass
@@ -140,7 +143,7 @@ class KeyGenerator:
             b_j = addmod(submod(e_j, mulmod(a_all[dj], sk.eval_full, q), q),
                          mulmod(s_prime, factor, q), q)
             bs.append(b_j)
-        return KSKey(torch.stack(bs), a_all)
+        return KSKey(torch.stack(bs), a_all, seed)
 
     def relin_key(self, sk: SecretKey) -> KSKey:
         q = self.ctx.mod(self.ctx.limb_idx(self.ctx.num_q, specials=True))

@@ -80,6 +80,12 @@
 // output rows are left unwritten).  y must not alias x: both blocks of a
 // row read it.
 //
+// Rings below 2^11 (the test-scale presets, 2^8) are too short for that
+// layout (n/64 threads, at least one warp): `ntt_fwd_kernel_small` and
+// `ntt_inv_kernel_small` take one block of n/2 threads per row, the row in
+// shared memory, one radix-2 stage per barrier -- the plain versions'
+// stages exactly, with the same row map and strided K2 sources.
+//
 // C interface (loaded with ctypes): pointers to int32 tensors reinterpreted
 // as uint32; each entry returns cudaGetLastError() after the launch.
 
@@ -453,6 +459,71 @@ ntt_inv_kernel(const uint32_t* __restrict__ x, uint32_t* __restrict__ y,
   cluster.sync();                      // the partner is done with buf
 }
 
+// One block of n/2 threads per row (n <= 2^10): thread t runs butterfly t
+// of every stage on the row in shared memory.
+__global__ void __launch_bounds__(512)
+ntt_fwd_kernel_small(const uint32_t* __restrict__ x,
+                     uint32_t* __restrict__ y, RowMap map, int logn,
+                     const uint32_t* __restrict__ qs,
+                     const uint32_t* __restrict__ tw,
+                     const uint32_t* __restrict__ tws) {
+  extern __shared__ uint32_t a[];
+  const int n = 1 << logn, h0 = n >> 1, t = threadIdx.x;
+  const int limb_i = map.limb(blockIdx.x);
+  if (limb_i < 0) return;
+  const size_t limb = static_cast<size_t>(limb_i);
+  const uint32_t q = qs[limb];
+  const uint32_t* w = tw + limb * n;
+  const uint32_t* ws = tws + limb * n;
+  const size_t row = static_cast<size_t>(map.row(blockIdx.x)) * n;
+  a[t] = x[row + t];
+  a[t + h0] = x[row + t + h0];
+  __syncthreads();
+  // Cooley-Tukey: m groups of pairs at distance h, group j's twiddle m + j
+  for (int m = 1, lh = logn - 1; lh >= 0; m <<= 1, --lh) {
+    const int j = t >> lh, p = (j << (lh + 1)) + (t & ((1 << lh) - 1));
+    butterfly<false>(a[p], a[p + (1 << lh)], __ldg(w + m + j),
+                     __ldg(ws + m + j), q);
+    __syncthreads();
+  }
+  y[row + t] = a[bitrev(t, logn)];
+  y[row + t + h0] = a[bitrev(t + h0, logn)];
+}
+
+__global__ void __launch_bounds__(512)
+ntt_inv_kernel_small(const uint32_t* __restrict__ x,
+                     uint32_t* __restrict__ y, RowMap map,
+                     long long entry_stride, int logn,
+                     const uint32_t* __restrict__ qs,
+                     const uint32_t* __restrict__ itw,
+                     const uint32_t* __restrict__ itws,
+                     const uint32_t* __restrict__ ninv,
+                     const uint32_t* __restrict__ ninv_s) {
+  extern __shared__ uint32_t a[];
+  const int n = 1 << logn, h0 = n >> 1, t = threadIdx.x;
+  const int limb_i = map.limb(blockIdx.x);
+  if (limb_i < 0) return;
+  const size_t limb = static_cast<size_t>(limb_i);
+  const uint32_t q = qs[limb];
+  const uint32_t* w = itw + limb * n;
+  const uint32_t* ws = itws + limb * n;
+  const uint32_t* src = x + map.entry(blockIdx.x) * entry_stride +
+                        static_cast<long long>(map.pos(blockIdx.x)) * n;
+  a[t] = src[bitrev(t, logn)];
+  a[t + h0] = src[bitrev(t + h0, logn)];
+  __syncthreads();
+  // Gentleman-Sande from the bit-reversed load: m = n/2 .. 1 groups
+  for (int m = h0, lh = 0; m >= 1; m >>= 1, ++lh) {
+    const int j = t >> lh, p = (j << (lh + 1)) + (t & ((1 << lh) - 1));
+    butterfly<true>(a[p], a[p + (1 << lh)], __ldg(w + m + j),
+                    __ldg(ws + m + j), q);
+    __syncthreads();
+  }
+  const size_t row = static_cast<size_t>(map.row(blockIdx.x)) * n;
+  y[row + t] = shoup_mul(a[t], ninv[limb], ninv_s[limb], q);
+  y[row + t + h0] = shoup_mul(a[t + h0], ninv[limb], ninv_s[limb], q);
+}
+
 // The dynamic shared memory above 48 KB is allowed once per instantiation.
 template <typename Kernel>
 cudaError_t allow_smem(Kernel kernel, int smem, bool& ready) {
@@ -513,7 +584,12 @@ int ntt_forward(const void* x, void* y, const void* limb_map, int D, int M,
     case 13: return static_cast<int>(launch_fwd<13>(xi, yo, map, q, w, ws, s));
     case 14: return static_cast<int>(launch_fwd<14>(xi, yo, map, q, w, ws, s));
     case 15: return static_cast<int>(launch_fwd<15>(xi, yo, map, q, w, ws, s));
-    default: return static_cast<int>(cudaErrorInvalidValue);
+    default:
+      if (logn < 1 || logn > 10) return static_cast<int>(cudaErrorInvalidValue);
+      ntt_fwd_kernel_small<<<map.work, 1 << (logn - 1),
+                             sizeof(uint32_t) << logn, s>>>(xi, yo, map, logn,
+                                                            q, w, ws);
+      return static_cast<int>(cudaGetLastError());
   }
 }
 
@@ -548,7 +624,12 @@ int ntt_inverse(const void* x, void* y, const void* limb_map, int D, int M,
         launch_inv<14>(xi, yo, map, es, q, w, ws, n0, n0s, n1, n1s, s));
     case 15: return static_cast<int>(
         launch_inv<15>(xi, yo, map, es, q, w, ws, n0, n0s, n1, n1s, s));
-    default: return static_cast<int>(cudaErrorInvalidValue);
+    default:
+      if (logn < 1 || logn > 10) return static_cast<int>(cudaErrorInvalidValue);
+      ntt_inv_kernel_small<<<map.work, 1 << (logn - 1),
+                             sizeof(uint32_t) << logn, s>>>(
+          xi, yo, map, es, logn, q, w, ws, n0, n0s);
+      return static_cast<int>(cudaGetLastError());
   }
 }
 

@@ -1,8 +1,8 @@
-"""Packed homomorphic linear algebra over CKKS slots: the subset of the JAX
-package's `linalg/packed.py` that the block-major circuit and the bootstrap
-call: masks, rotate-accumulate trees, batched interleave/deinterleave, the
-RE weight layout, and the BSGS diagonal transform on the double-hoisted
-combo with its four rescale modes.
+"""Packed homomorphic linear algebra over CKKS slots (the JAX package's
+`linalg/packed.py`): slot layouts and masks, rotate-accumulate trees, the
+RE/CR/BSGS matmul families, batched interleave/deinterleave and the
+wrap/unwrap helpers, and the BSGS diagonal transform with its four rescale
+modes, on the double-hoisted combo or on hoisted rotations.
 
 Layout conventions over slots = nb * d:
   expanded:  slot[d*j + i] = v[j]   (value j fills block j)
@@ -16,7 +16,7 @@ import math
 import numpy as np
 import torch
 
-from ..ckks.ciphertext import Ciphertext
+from ..ckks.ciphertext import Ciphertext, Plaintext
 from ..ckks.evaluator import Evaluator
 
 
@@ -27,11 +27,42 @@ def _log2(x: int) -> int:
 
 
 class PackedOps:
-    def __init__(self, ev: Evaluator, d: int = 128):
+    """`bsgs_combo`: run bsgs_diag_transform on the double-hoisted rotation
+    combo (True) or on hoisted rotations and per-level plaintexts."""
+
+    def __init__(self, ev: Evaluator, d: int = 128, bsgs_combo: bool = True):
         self.ev = ev
         self.d = d
         self.slots = ev.ctx.cfg.slots
         self.nb = self.slots // d
+        self.bsgs_combo = bsgs_combo
+
+    def required_rotations(self) -> tuple[int, ...]:
+        """Power-of-two shifts (both signs) covering the rotsum/repeat
+        trees."""
+        out, s = set(), 1
+        while s < self.slots:
+            out |= {s, -s}
+            s *= 2
+        return tuple(sorted(out))
+
+    # -- slot patterns -------------------------------------------------------
+
+    def expanded_slots(self, v: np.ndarray) -> np.ndarray:
+        full = np.zeros(self.nb)
+        full[: len(v)] = v
+        return np.repeat(full, self.d)
+
+    def repeated_slots(self, v: np.ndarray) -> np.ndarray:
+        full = np.zeros(self.d)
+        full[: len(v)] = v
+        return np.tile(full, self.nb)
+
+    def matrix_cr_slots(self, W: np.ndarray) -> np.ndarray:
+        """Weight layout slot[d*j + i] = W[j][i]."""
+        Wp = np.zeros((self.nb, self.d))
+        Wp[: W.shape[0], : W.shape[1]] = W
+        return Wp.reshape(-1)
 
     def matrix_re_slots(self, W: np.ndarray) -> np.ndarray:
         """Weight layout slot[d*j + i] = W[i][j]."""
@@ -91,6 +122,53 @@ class PackedOps:
             ct = ev.add(ct, ev.rotate(ct, s))
         return ct
 
+    # -- matmul families --------------------------------------------------
+
+    def matmul_re(self, ct_exp: Ciphertext, w_pt: Plaintext,
+                  bias_slots: np.ndarray | None = None) -> Ciphertext:
+        """expanded x (matrix in RE layout) -> repeated y = W x (+ b), the
+        bias encoded at the post-rescale scale."""
+        out = self.ev.mul_plain(ct_exp, w_pt)
+        out = self.rotsum(out, self.nb, self.d)
+        if bias_slots is not None:
+            pt = self.ev.encode(bias_slots, nl=out.nl, scale=out.scale)
+            out = self.ev.add_plain(out, pt)
+        return out
+
+    def matmul_cr(self, ct_rep: Ciphertext, w_pt: Plaintext,
+                  width: int | None = None) -> Ciphertext:
+        """repeated x (matrix in CR layout) -> expanded-dirty y = W x:
+        slot[d*j] = y_j, the other lanes partial sums (masked later)."""
+        out = self.ev.mul_plain(ct_rep, w_pt)
+        return self.rotsum(out, width or self.d, 1)
+
+    def matmul_bsgs(self, ct: Ciphertext, W: np.ndarray,
+                    scale: float | None = None) -> Ciphertext:
+        """y = W @ x for x in slots [0, dim), W (dim x dim), dim a power of
+        two dividing slots: baby-step/giant-step over the generalized
+        diagonals (tiled over the slots), babies by hoisted rotations."""
+        ev = self.ev
+        dim = W.shape[0]
+        assert W.shape == (dim, dim)
+        bs = 1 << -(-(dim.bit_length() - 1) // 2)
+        gs = dim // bs
+        i = np.arange(dim)
+        diags = {k: np.tile(W[i % dim, (i + k) % dim], self.slots // dim)
+                 for k in range(dim)}
+        baby = ev.rotate_hoisted(ct, range(bs))
+        acc = None
+        for g in range(gs):
+            inner = None
+            for j in range(bs):
+                k = g * bs + j
+                dk = np.roll(diags[k], g * bs)
+                pt = ev.encode(dk, nl=ct.nl, scale=scale or ev.ctx.delta)
+                term = ev.mul_plain(baby[j], pt, rescale=False)
+                inner = term if inner is None else ev.add(inner, term)
+            rot = ev.rotate(inner, g * bs) if g else inner
+            acc = rot if acc is None else ev.add(acc, rot)
+        return ev.rescale(acc)
+
     # -- batched log-tree interleave -----------------------------------------
 
     def interleave_batch(self, ct: Ciphertext, stride: int = 1) -> Ciphertext:
@@ -136,6 +214,15 @@ class PackedOps:
             k *= 2
         return out.with_data(out.c0[:m], out.c1[:m])
 
+    def unwrap_to_repeated(self, ct: Ciphertext, m: int) -> Ciphertext:
+        """Inverse of an interleaved wrap: an (m, ...) batch of repeated
+        cts, one per interleaved lane."""
+        ev = self.ev
+        batch = self.deinterleave_batch(ct, m, 1)
+        pt = ev.encode_cached(("mask_mod_n", self.d, 0),
+                              self.mask_mod_n(self.d), nl=batch.nl)
+        return self.repeat(ev.mul_plain(batch, pt), self.d, 1)
+
     # -- BSGS diagonal transform on the double-hoisted combo -------------------
 
     def bsgs_diag_transform(self, ct: Ciphertext, diags: dict[int, np.ndarray],
@@ -144,12 +231,15 @@ class PackedOps:
                             rescale_mode: str | None = None) -> Ciphertext:
         """y_i = sum_k diags[k][i] * x[(i+k) mod slots]: BSGS over a sparse
         diagonal set with offsets decomposed stride-aware as
-        k = stride*(g*bs + j).  The decomposition runs once; stage 1 (per
-        baby permutation + key inner products) is shared by every giant
-        group; each group accumulates plaintext-weighted rows with one lazy
-        mod-down; giant shifts without a dedicated key compose
-        (rotate_any).  Plaintexts are level-independent coefficient
-        vectors, cached per diagonal.
+        k = stride*(g*bs + j).  On the combo (`bsgs_combo`): the
+        decomposition runs once; stage 1 (per baby permutation + key inner
+        products) is shared by every giant group; each group accumulates
+        plaintext-weighted rows with one lazy mod-down; giant shifts
+        without a dedicated key compose (rotate_any); plaintexts are
+        level-independent coefficient vectors, cached per diagonal.
+        Otherwise the babies are hoisted rotations and each group a sum of
+        plaintext products (eval plaintexts cached per level), rotated by
+        its giant shift.
 
         rescale_mode (double_rescale=True means "double"), with qd, qd2
         the top two primes:
@@ -174,6 +264,22 @@ class PackedOps:
         for k, d in diags.items():
             g, j = divmod((k % self.slots) // stride, bs)
             by_giant.setdefault(g, {})[j] = d
+        acc = self._bsgs_combo(ct, diags, by_giant, bs, stride, scale) \
+            if self.bsgs_combo else \
+            self._bsgs_hoisted(ct, diags, by_giant, bs, stride, scale)
+        acc = ev.rescale(acc)
+        if mode == "double":
+            acc = ev.rescale(acc)
+            acc.scale = ct.scale        # exact by construction
+        elif mode == "raise":
+            acc.scale = ct.scale * qd2  # qd cancelled by the one rescale
+        elif mode == "lower":
+            acc = ev.rescale(acc)
+            acc.scale = ct.scale / qd2
+        return acc
+
+    def _bsgs_combo(self, ct, diags, by_giant, bs, stride, scale):
+        ev = self.ev
         ks = ev.ctx.ks_tables(ct.nl)
         y_e = ev.hoist_decompose(ct, ks)
         baby_shifts = sorted({j * stride for js in by_giant.values()
@@ -198,15 +304,23 @@ class PackedOps:
                 inner = ev.combo_stage2(ct, stage1, items, baby_shifts, ks)
                 rot = ev.rotate_any(inner, gshift) if gshift else inner
                 acc = rot if acc is None else ev.add(acc, rot)
-        acc = ev.rescale(acc)
-        if mode == "double":
-            acc = ev.rescale(acc)
-            acc.scale = ct.scale        # exact by construction
-        elif mode == "raise":
-            acc.scale = ct.scale * qd2  # qd cancelled by the one rescale
-        elif mode == "lower":
-            acc = ev.rescale(acc)
-            acc.scale = ct.scale / qd2
+        return acc
+
+    def _bsgs_hoisted(self, ct, diags, by_giant, bs, stride, scale):
+        ev = self.ev
+        babies = ev.rotate_hoisted(ct, sorted(
+            {j * stride for js in by_giant.values() for j in js}))
+        acc = None
+        for g, js in sorted(by_giant.items()):
+            inner = None
+            for j, d in sorted(js.items()):
+                dk = np.roll(np.asarray(d), g * bs * stride)
+                pt = ev.encode_cached((id(diags), g, j), dk, nl=ct.nl,
+                                      scale=scale)
+                t = ev.mul_plain(babies[j * stride], pt, rescale=False)
+                inner = t if inner is None else ev.add(inner, t)
+            rot = ev.rotate(inner, g * bs * stride) if g else inner
+            acc = rot if acc is None else ev.add(acc, rot)
         return acc
 
     @staticmethod
@@ -228,3 +342,40 @@ class PackedOps:
             if g:
                 need.add(g * bs * stride)
         return need
+
+    # -- wrap / unwrap -----------------------------------------------------
+
+    def wrap_up_repeated(self, cts: list[Ciphertext],
+                         scale: float | None = None) -> Ciphertext:
+        """Mask block j of ct j and sum: n repeated cts -> one ct whose
+        block j holds ct j's d-vector."""
+        ev = self.ev
+        out = None
+        for j, ct in enumerate(cts):
+            pt = ev.encode(self.mask_block(j), nl=ct.nl,
+                           scale=scale or ev.ctx.delta)
+            t = ev.mul_plain(ct, pt, rescale=False)
+            out = t if out is None else ev.add(out, t)
+        return ev.rescale(out)
+
+    def wrap_up_expanded(self, cts: list[Ciphertext]) -> Ciphertext:
+        """Stride-mask + interleave n expanded-dirty cts into one ct:
+        slot[d*j + t] = ct_t's y_j."""
+        ev = self.ev
+        out = None
+        for t, ct in enumerate(cts):
+            pt = ev.encode(self.mask_mod_n(self.d), nl=ct.nl)
+            m = ev.mul_plain(ct, pt, rescale=False)
+            if t:
+                m = ev.rotate(m, -t)
+            out = m if out is None else ev.add(out, m)
+        return ev.rescale(out)
+
+    def unwrap_expanded(self, ct: Ciphertext, index: int) -> Ciphertext:
+        """Extract interleaved column `index` back to a repeated ct."""
+        ev = self.ev
+        pt = ev.encode(self.mask_mod_n(self.d, offset=index), nl=ct.nl)
+        m = ev.mul_plain(ct, pt, rescale=False)
+        if index:
+            m = ev.rotate(m, index)
+        return self.repeat(ev.rescale(m), self.d, 1)

@@ -5,7 +5,8 @@ Both kernels (`csrc/ntt.cu`) split a row over two blocks of n/64 threads
 and keep each thread's 32 elements in registers through three radix-32
 phases with two shared-memory exchanges: K1 after its first stage, K2
 before its last, which pairs the halves through the distributed shared
-memory of a 2-block cluster.  These wrappers check the tensors, launch on
+memory of a 2-block cluster (rings below 2^11: one block per row, radix-2
+stages in shared memory).  These wrappers check the tensors, launch on
 PyTorch's current stream and count the launches.  The plain versions they
 replace on the CPU are `ntt.fwd_plain` / `ntt.inv_plain`;
 `fwd_phased_plain` and `inv_phased_plain` repeat the kernels' thread and
@@ -28,9 +29,12 @@ from .ntt import NttTables, is_limb_map
 # block, two blocks a row: at least one warp (n >= 2**11), and at 2**15
 # 512 threads x 64 registers, so two blocks share an SM.  Ring 2**16 rows
 # would need 1024 threads at the same register budget, or a row split four
-# ways; both kernels are instantiated up to 2**15.
+# ways; both kernels are instantiated up to 2**15.  Below 2**11 (MIN_LOGN)
+# the rows go to the one-block-per-row radix-2 kernels
+# (`ntt_*_kernel_small`), whose schedule is the plain versions'.
 MAX_LOGN = 15
 MIN_LOGN = 11
+SMALL_MIN_LOGN = 1
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -58,9 +62,9 @@ def _check(x: torch.Tensor, t: NttTables, L: int) -> int:
     if x.dim() < 2 or x.shape[-1] != t.n or x.shape[-2] != L:
         raise ValueError(f"shape {tuple(x.shape)} does not match n={t.n}, "
                          f"{L} limbs")
-    if not MIN_LOGN <= t.logn <= MAX_LOGN:
-        raise ValueError(f"ring 2^{t.logn} is outside K1/K2's 2^{MIN_LOGN} "
-                         f"to 2^{MAX_LOGN}")
+    if not SMALL_MIN_LOGN <= t.logn <= MAX_LOGN:
+        raise ValueError(f"ring 2^{t.logn} is outside K1/K2's "
+                         f"2^{SMALL_MIN_LOGN} to 2^{MAX_LOGN}")
     if x.device != t.device:
         raise ValueError(f"tensor on {x.device}, tables on {t.device}")
     return x.numel() // t.n

@@ -306,6 +306,27 @@ def test_bootstrap_chunked_equals_unchunked(env):
     np.testing.assert_allclose(np.real(ev.decrypt(chunked)), m, atol=2e-2)
 
 
+def test_bootstrap_chunks_a_2d_batch(env):
+    """A (2, 2) batch with chunk = 3 runs flattened, in a full part and a
+    zero-padded one, and equals the unchunked (2, 2) bootstrap."""
+    _, ev, boots = env
+    booter = boots["narrow"]
+    m = np.random.default_rng(10).uniform(-0.9, 0.9, (2, 2, ev.ctx.cfg.slots))
+    low = ev.drop_to(ev.encrypt(m.reshape(4, -1), batch=True), 1)
+    low = low.with_data(low.c0.reshape((2, 2) + tuple(low.c0.shape[1:])),
+                        low.c1.reshape((2, 2) + tuple(low.c1.shape[1:])))
+    full = booter.bootstrap(low)
+    booter.chunk = 3
+    try:
+        chunked = booter.bootstrap(low)
+    finally:
+        booter.chunk = 0
+    assert chunked.c0.shape == full.c0.shape == (2, 2, full.nl,
+                                                 ev.ctx.cfg.n)
+    assert torch.equal(chunked.c0, full.c0) and torch.equal(chunked.c1,
+                                                            full.c1)
+
+
 def test_wide_production_config():
     """wide_production's defaults are the JAX package's with its
     environment knobs unset; refresh runs one pass when wide (measured
