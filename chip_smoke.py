@@ -45,7 +45,9 @@ Phases, each printing one JSON line:
                 the CLI's rotation set through save_keys -> load_keys;
                 cold and warm requests with seconds, key switches and
                 bootstrapped ciphertexts per layer and stage, peak memory,
-                the host decrypt against the 2-layer golden; a traced warm
+                the host decrypt against the 2-layer golden, the warm
+                request's ciphertext against the cold one's (the same
+                encryption draws: equal bit for bit); a traced warm
                 request; one per-token single-layer request at S = 128
   8. cli      - `python -m fhe_linformer_tpu_torch.cli` keygen, infer
                 (--keys-dir, --cls-only) and golden as subprocesses at
@@ -62,6 +64,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import copy
 import functools
 import json
 import os
@@ -939,10 +942,12 @@ def _stage_log(circ, boot):
 
 
 def _token_request(circ, boot, emb, want, extra_layers, caches, input_nl,
-                   **extra):
+                   same_as=None, **extra):
     """One request through EncryptedLinformer.forward, decrypted on the
     host in float64; emits its line and fails unless the logits match
-    golden (argmax equal, max |err| <= 0.05)."""
+    golden (argmax equal, max |err| <= 0.05) and, given `same_as` (an
+    earlier request's output from the same encryption draws), its output
+    ciphertext equals that one exactly.  Returns the output ciphertext."""
     import torch
     from fhe_linformer_tpu_torch.utils.timing import GLOBAL_TIMERS
     torch.cuda.reset_peak_memory_stats()
@@ -953,7 +958,10 @@ def _token_request(circ, boot, emb, want, extra_layers, caches, input_nl,
                            input_nl=input_nl)
         torch.cuda.synchronize()
         forward_s = time.perf_counter() - t
-    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    # _stage_log resets the peak at each layer: the request's is the largest
+    peak = max([torch.cuda.max_memory_allocated() / 2 ** 30]
+               + [row["max_memory_allocated_gb"] for row in log.values()
+                  if "max_memory_allocated_gb" in row])
     t = time.perf_counter()
     vals = np.real(circ.ev.decrypt_host(out))
     logits = vals[: len(want) * circ.ops.d: circ.ops.d]
@@ -971,12 +979,20 @@ def _token_request(circ, boot, emb, want, extra_layers, caches, input_nl,
             "golden_argmax": int(np.argmax(want)),
             "max_abs_logit_err": err, "max_memory_allocated_gb": peak,
             **extra}
+    if same_as is not None:
+        line["equals_cold_ciphertext"] = (out.nl, out.scale) == \
+            (same_as.nl, same_as.scale) and torch.equal(out.c0, same_as.c0) \
+            and torch.equal(out.c1, same_as.c1)
     emit(line)
     if not np.all(np.isfinite(logits)) or \
             np.argmax(logits) != np.argmax(want) or not err <= 0.05:
         raise AssertionError(f"token_forward S={line['S']}: logits {logits} "
                              f"vs golden {want} (max err {err})")
-    return line
+    if same_as is not None and not line["equals_cold_ciphertext"]:
+        raise AssertionError(f"token_forward S={line['S']}: the {caches} "
+                             "request's ciphertext differs from the cold "
+                             "request's on the same encryption draws")
+    return out
 
 
 def _keys_equal(a, b) -> bool:
@@ -1078,9 +1094,17 @@ def phase_token_forward(S=32, with_s128=True):
         exp_pow8=False)
     circ = EncryptedLinformer(ev, w1, params)
     reset_launches()
+    # both requests draw the same encryption randomness, so the warm one
+    # (plaintext caches filled by the cold one) must give the cold one's
+    # ciphertext bit for bit: the golden bound cannot see a layer computed
+    # with another layer's weights
+    draws = copy.deepcopy(ev._enc_rng)
+    cold = None
     for caches in ("cold", "warm"):
-        _token_request(circ, booter, emb, inter["logits"], [w2], caches, 12,
-                       preset=preset.name)
+        ev._enc_rng = copy.deepcopy(draws)
+        cold = _token_request(circ, booter, emb, inter["logits"], [w2],
+                              caches, 12, same_as=cold, preset=preset.name)
+    del cold
     launches = dict(KERNEL_LAUNCHES)
     with _shape_census() as calls:
         trace, runs = _device_breakdown(lambda: circ.forward(

@@ -7,7 +7,7 @@ the GELU or a rotation processes all of them in one batched op.  Rows are
 wrapped into single ciphertexts and back by batched log-tree interleaves
 (`PackedOps.interleave_batch` / `deinterleave_batch`).  Levels and scales
 are tracked by the evaluator; weights encode at the level that consumes
-them and stay cached per (name, level).
+them and stay cached per (weights, name, level).
 
 The affine norm multiplies a/b in expanded layout (per dimension), as the
 golden model computes it.  Layers after the first run the Linformer E/F
@@ -55,11 +55,16 @@ class EncryptedLinformer:
 
     def _pt(self, name: str, slots: np.ndarray, nl: int,
             scale: float | None = None) -> Plaintext:
-        """Weight plaintexts, cached per (name, nl, scale)."""
-        key = (name, nl, scale)
+        """Weight plaintexts, cached per (weights, name, nl, scale).  The
+        key names the layer's weights: two layers' FFNs start from the same
+        refresh, so (name, nl) alone would hand one layer the other's
+        plaintexts.  Each entry holds its weights, so their id stays
+        theirs while the entry lives."""
+        key = (id(self.w), name, nl, scale)
         if key not in self._pt_cache:
-            self._pt_cache[key] = self.ev.encode(slots, nl=nl, scale=scale)
-        return self._pt_cache[key]
+            self._pt_cache[key] = (self.w, self.ev.encode(slots, nl=nl,
+                                                          scale=scale))
+        return self._pt_cache[key][1]
 
     # -- client-side input preparation ---------------------------------
 

@@ -9,8 +9,16 @@ k_lin = 4, d_ffn = 32, 5 classes).
     JAX stage: residues, (nl, scale) and key-switch counts
   * the port's whole forward (the tiny preset's 58-limb chain): logits vs
     golden
+  * two 2-layer forwards on one circuit (a decrypt/re-encrypt refresh in
+    place of the bootstrap) equal a fresh circuit's bit for bit
   * (slow) the whole 2-layer bootstrapped forward
     (tests/test_circuit_boot.py's setup), bit-exact vs the JAX forward
+
+The attention, FFN and pooler comparisons are `slow` too: each costs the
+JAX package 20-70 s of XLA traces and compiles (one per function, batch
+shape and level: ~330 for the attention, each key switch ~2 s), so the
+default run keeps the stages that share their compiles (wrap/affine/
+unwrap, ef_project) and the port's own forwards.
 """
 
 from dataclasses import fields
@@ -130,6 +138,7 @@ def _enc(jcirc, X, nl=None):
                             batch=True, nl=nl)
 
 
+@pytest.mark.slow
 @pytest.mark.parametrize("cls_only", [False, True], ids=["full", "cls_only"])
 def test_attention_bit_exact(env, cls_only):
     jcirc, circ, emb = env
@@ -152,6 +161,7 @@ def test_wrap_affine_unwrap_bit_exact(env):
           lambda: circ.unwrap_tokens(wr, S))
 
 
+@pytest.mark.slow
 @pytest.mark.parametrize("rows,token_chunk", [(S, None), (18, 8)],
                          ids=["containers", "token_chunk"])
 def test_ffn_bit_exact(env, rows, token_chunk):
@@ -178,6 +188,7 @@ def test_ef_project_bit_exact(env):
     np.testing.assert_allclose(got, E @ X + b[:, None], atol=5e-3)
 
 
+@pytest.mark.slow
 def test_pooler_classifier_bit_exact(env):
     jcirc, circ, _ = env
     jct = _enc(jcirc, np.random.default_rng(9).normal(0, 0.5, (1, D)), nl=12)
@@ -199,6 +210,77 @@ def test_forward_matches_golden():
     logits = circ.decrypt_logits(circ.forward(emb))
     assert np.argmax(logits) == np.argmax(want["logits"]), (logits, want)
     np.testing.assert_allclose(logits, want["logits"], atol=0.05)
+
+
+def test_weight_plaintexts_cached_per_weights(env):
+    """_pt keys by the weights as well as (name, level): the same weights
+    hit their entry; another layer's weights at the same (name, level)
+    get a plaintext of their own."""
+    _, circ, _ = env
+    w1, w2 = circ.w, _weights(24, seed=6, scale=0.3)
+
+    def probe(w):
+        return circ._pt("probe", circ.ops.matrix_re_slots(w.W1[:D]), 8)
+
+    a = probe(w1)
+    assert probe(w1) is a
+    circ.w = w2
+    try:
+        b = probe(w2)
+    finally:
+        circ.w = w1
+    assert b is not a and not torch.equal(a.data, b.data)
+    assert probe(w1) is a
+
+
+class _ClientRefresh:
+    """A stand-in for the bootstrapper: decrypt, re-encrypt at `nl` limbs.
+    Like a bootstrap it leaves every refresh at one (nl, scale), so both
+    layers' FFNs start from the same level."""
+
+    def __init__(self, ev, nl):
+        self.ev, self.nl = ev, nl
+
+    def refresh(self, ct):
+        vals = self.ev.decrypt(ct)
+        lead = vals.shape[:-1]
+        out = self.ev.encrypt(vals.reshape((-1, vals.shape[-1])), batch=True,
+                              nl=self.nl)
+        return out.with_data(out.c0.reshape(lead + tuple(out.c0.shape[1:])),
+                             out.c1.reshape(lead + tuple(out.c1.shape[1:])))
+
+    bootstrap = refresh
+
+
+def test_forward_twice_equals_fresh_circuit():
+    """A second forward(extra_layers=) request on one circuit gives the
+    first's ciphertext (a fresh circuit's) bit for bit on the same
+    encryption draws.  The plaintext cache must tell the layers' weights
+    apart: keyed by name and level alone, the second request's layer 1
+    found layer 2's FFN plaintexts at the refresh's level."""
+    torch.set_num_threads(2)
+    ctx = Context(CKKSConfig(**PARAMS), device="cpu")
+    keys = generate_keys(ctx, rotations=_pow2(ctx.cfg.slots))
+    w1, w2 = _weights(12), _weights(12, seed=6, scale=0.3)
+    emb = np.random.default_rng(13).normal(0, 0.3, (4, D))
+    i1 = golden.forward(w1, emb, return_intermediates=True)[1]
+    i2 = golden.forward(w1, emb, extra_layers=[w2],
+                        return_intermediates=True)[1]
+    p = CircuitParams(**_params([w1, w2], [i1, i2]))
+
+    def request(circ):
+        circ.ev._enc_rng = np.random.default_rng(ctx.cfg.seed ^ 0x5EED)
+        return circ.forward(emb, extra_layers=[w2], input_nl=10,
+                            boot=_ClientRefresh(circ.ev, 16))
+
+    circ = EncryptedLinformer(Evaluator(ctx, keys), w1, p)
+    fresh, second = request(circ), request(circ)
+    assert (second.nl, second.scale) == (fresh.nl, fresh.scale)
+    assert torch.equal(second.c0, fresh.c0)
+    assert torch.equal(second.c1, fresh.c1)
+    logits = circ.decrypt_logits(second)
+    assert np.argmax(logits) == np.argmax(i2["logits"]), (logits, i2)
+    np.testing.assert_allclose(logits, i2["logits"], atol=0.05)
 
 
 @pytest.mark.slow
