@@ -10,9 +10,10 @@ Phases, each printing one JSON line:
   2. kernels  - each CUDA kernel against its plain PyTorch version on the
                 card at every shape the main paths send it (K2 through the
                 port's `ntt.inv`, on the limb slices it reads in place; the
-                ring-2^8 kernels of the CLI phase): exact equality, median
-                time, the plain version's time, and the least time the card
-                could take (`bound`)
+                ring-2^8 kernels of the CLI phase; the ring-2^16 shapes of
+                phase ring16): exact equality, median time, the plain
+                version's time, and the least time the card could take
+                (`bound`)
   3. keyswitch - the CLI `bench` case: one Galois key switch at N = 2^15,
                 24 limbs, dnum 3, batch 4 (the yardstick for later speed
                 work); rotate_hoisted of the same ciphertext by 3 shifts,
@@ -47,12 +48,21 @@ Phases, each printing one JSON line:
                 bootstrapped ciphertexts per layer and stage, peak memory,
                 the host decrypt against the 2-layer golden, the warm
                 request's ciphertext against the cold one's (the same
-                encryption draws: equal bit for bit); a traced warm
-                request; one per-token single-layer request at S = 128
-  8. cli      - `python -m fhe_linformer_tpu_torch.cli` keygen, infer
+                encryption draws: equal bit for bit); at the start of each
+                request and layer, memory allocated and what each plaintext
+                and key cache holds; a traced warm request; one per-token
+                single-layer request at S = 128
+  8. ring16   - preset linformer-128c (ring 2^16, 47 q-limbs, uniform
+                ternary secret, >= 128-bit classical security): context,
+                keys for the bootstrap's rotations and conjugation, the
+                uniform-secret wide bootstrap (K = 512, degree-201 sine,
+                6 double angles) of 2 ciphertexts dropped to one limb, cold
+                and warm; limbs out, precision through the host decrypt,
+                peak memory, and a traced warm bootstrap
+  9. cli      - `python -m fhe_linformer_tpu_torch.cli` keygen, infer
                 (--keys-dir, --cls-only) and golden as subprocesses at
                 preset tiny on the card: exit codes and argmax
-  9. the `kernels` line: every kernel with its launches over phases 4-7
+ 10. the `kernels` line: every kernel with its launches over phases 4-8
 
 It ends with {"ok": true, "device": {...}}.  Any failure raises and exits
 non-zero before that line.  There is no CPU path: the script refuses to run
@@ -97,6 +107,10 @@ REFERENCE_BOOTSTRAPS = {128: 3, 700: 13}
 REFERENCE_KEYSWITCHES_S128 = {"attention": 1383, "ffn_gelu": 482,
                               "pooler_classifier": 196}
 REFERENCE_BOOT = {"out_nl": 23, "precision_bits": 7.03, "rotation_keys": 46}
+# ring128c_run.json (tools/ring128c_run.py on linformer-128c, batch 1); the
+# phase requires out_nl as the JAX package's current code leaves it on the
+# same chain (tests/test_torch_ring16.py) and at least 4.0 bits
+REFERENCE_RING16 = {"out_nl": 2, "precision_bits": 4.61, "rotation_keys": 38}
 BOOT_CHUNK_CONFIG5 = 8   # ciphertexts per bootstrap in phase 7
 
 
@@ -317,11 +331,35 @@ def _bc_case(bc, g_valid, B, prefolded, gen, reps, n=1 << LOG2N):
             "bound_ms": b_ms, "bound_by": b_by}
 
 
-def phase_kernels(ctx, tiny):
+def _ring16_cases(ctx, gen):
+    """The kernels at ring 2^16 (linformer-128c), at the shapes of phase
+    ring16's batch-2 bootstrap: its mod-raise (K2 on limb 0 read in place,
+    K1 on the 47 limbs) and the top-level decomposition's digit map; its
+    most launched classes (launch_shapes of a warm bootstrap): K1 on 168
+    and 232 rows (8 plaintexts over 21 and 29 limbs, 21 and 19 launches),
+    K2 on the rescale of 4 ciphertexts (8 rows of one limb, 117) and on
+    their mod-down's specials (8 x 16 rows, 37), K3's batch-4 decomposition
+    at level 33 and its mod-down (8 each)."""
+    top, mid = ctx.ks_tables(ctx.num_q), ctx.ks_tables(33)
+    n = ctx.cfg.n
+    return [_inv_case(ctx.ntt, (2,), top.act_idx, 0, gen, 20, stop=1),
+            _fwd_case(ctx.ntt, 2, ctx.num_q, gen, 20),
+            _fwd_case(ctx.ntt, 2, None, gen, 10, limb_map=top.dig_limbs),
+            _fwd_case(ctx.ntt, 8, 21, gen, 20),
+            _fwd_case(ctx.ntt, 8, 29, gen, 20),
+            _inv_case(ctx.ntt, (2, 4), mid.act_idx, 32, gen, 20),
+            _inv_case(ctx.ntt, (2, 4), mid.act_idx + mid.sp_idx, 33, gen,
+                      20),
+            _bc_case(mid.bc, 33, 4, False, gen, 20, n=n),
+            _bc_case(mid.md, ctx.k_sp, 8, True, gen, 20, n=n)]
+
+
+def phase_kernels(ctx, tiny, ring16):
     """Each kernel against its plain version on the card, at the shapes the
-    main paths send it (`tiny`: the CLI phase's context, ring 2^8).
-    Returns the main-shape numbers per kernel for the final `kernels`
-    line, and every row."""
+    main paths send it (`tiny`: the CLI phase's context, ring 2^8;
+    `ring16`: the ring16 phase's, linformer-128c at 2^16).  Returns the
+    main-shape numbers per kernel for the final `kernels` line, and every
+    row."""
     import torch
     from fhe_linformer_tpu_torch.ops.ntt import NttTables
     gen = torch.Generator(device="cuda")
@@ -429,6 +467,7 @@ def phase_kernels(ctx, tiny):
              _bc_case(tk.bc, tiny.num_q, 8, False, gen, 20, n=tiny.cfg.n),
              _bc_case(tk.md, tiny.k_sp, MODDOWN_BATCH, True, gen, 20,
                       n=tiny.cfg.n)]
+    rows += _ring16_cases(ring16, gen)
     main = {}
     for r in rows:
         emit({"phase": "kernels", **r})
@@ -745,18 +784,21 @@ def phase_forward():
 # phases 5 and 6
 
 
-def _boot_setup(cfg, circuit: bool = False):
-    """The linformer-boot-w context, keys for the bootstrap's rotations
-    (with `circuit`, also the packed circuit's) and conjugation, an
-    evaluator and a Bootstrapper; with the set-up's seconds and key
-    memory."""
+def _boot_setup(cfg, circuit: bool = False,
+                preset: str = "linformer-boot-w"):
+    """The preset's context, keys for the bootstrap's rotations (with
+    `circuit`, also the packed circuit's) and conjugation, an evaluator
+    and a Bootstrapper; with the set-up's seconds and key memory."""
     import torch
     from fhe_linformer_tpu_torch.boot.bootstrap import Bootstrapper
     from fhe_linformer_tpu_torch.ckks.context import Context
     from fhe_linformer_tpu_torch.ckks.evaluator import Evaluator
     from fhe_linformer_tpu_torch.ckks.keys import generate_keys
     from fhe_linformer_tpu_torch.config import get
-    ctx = Context(get("linformer-boot-w").ckks)
+    t0 = time.perf_counter()
+    ctx = Context(get(preset).ckks)
+    torch.cuda.synchronize()
+    context_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     boot_rots = Bootstrapper.rotations_for(ctx.cfg.n, cfg)
     plan_s = time.perf_counter() - t0
@@ -772,8 +814,12 @@ def _boot_setup(cfg, circuit: bool = False):
     ev = Evaluator(ctx, keys)
     t0 = time.perf_counter()
     booter = Bootstrapper(ev, cfg)
-    info = {"basis": len(ctx.basis), "boot_rotation_keys": len(boot_rots),
+    info = {"preset": preset, "n": ctx.cfg.n, "num_q": ctx.num_q,
+            "k_sp": ctx.k_sp, "basis": len(ctx.basis), "context_s": context_s,
+            "boot_rotation_keys": len(boot_rots),
             "rotation_keys": len(rots), "conjugation_key": True,
+            "keys": len(keys.rot) + (keys.relin is not None)
+            + (keys.conj is not None),
             "rotations_for_s": plan_s, "keygen_s": keygen_s,
             "key_memory_gb": key_gb,
             "bootstrapper_setup_s": time.perf_counter() - t0,
@@ -870,6 +916,67 @@ def phase_boot_forward(sizes=(128, 700)):
     return launches
 
 
+def phase_ring16(batch=2):
+    """tools/ring128c_run.py on the port: preset linformer-128c (ring 2^16,
+    47 q-limbs + 16 special, dnum 3, uniform ternary secret; >= 128-bit
+    classical security by security.assess) on a card the earlier phases
+    have released; keys for the bootstrap's rotations and conjugation,
+    the uniform-secret wide bootstrap (K = 512, degree-201 sine, 6 double
+    angles, scale_boost 4) of `batch` ciphertexts of
+    default_rng(3).uniform(-0.9, 0.9) dropped to one limb, cold and warm,
+    the host decrypt's precision, and a traced warm bootstrap.  Fails
+    under the JAX package's limbs out on this chain or 4.0 bits."""
+    import gc
+    import torch
+    from fhe_linformer_tpu_torch.boot.bootstrap import BootConfig
+    from fhe_linformer_tpu_torch.config import get
+    from fhe_linformer_tpu_torch.security import assess
+    from fhe_linformer_tpu_torch.utils.timing import (KERNEL_LAUNCHES,
+                                                      approx_error_log2,
+                                                      reset_launches)
+    gc.collect()
+    torch.cuda.empty_cache()
+    start_gb = torch.cuda.memory_allocated() / 2 ** 30
+    emit({"phase": "ring16_start", "memory_allocated_gb": start_gb})
+    preset = get("linformer-128c")
+    ev, booter, info = _boot_setup(
+        BootConfig(wide=True, scale_boost=4, K=512, sin_degree=201,
+                   double_angles=6), preset=preset.name)
+    m = np.random.default_rng(3).uniform(-0.9, 0.9, (batch, ev.ctx.cfg.slots))
+    low = ev.drop_to(ev.encrypt(m, batch=True), 1)
+    torch.cuda.synchronize()
+    reset_launches()
+    runs = []
+    for label in ("cold", "warm"):
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        out = booter.bootstrap(low)
+        torch.cuda.synchronize()
+        runs.append({"run": label, "s": time.perf_counter() - t,
+                     "max_memory_allocated_gb":
+                         torch.cuda.max_memory_allocated() / 2 ** 30})
+    launches = dict(KERNEL_LAUNCHES)
+    t = time.perf_counter()
+    prec = approx_error_log2(m, np.real(ev.decrypt_host(out)))
+    decrypt_s = time.perf_counter() - t
+    with _shape_census() as calls:
+        trace, traced = _device_breakdown(lambda: booter.bootstrap(low))
+    emit({"phase": "ring16", **info, "security": assess(ev.ctx).__dict__,
+          "memory_allocated_at_start_gb": start_gb, "batch": batch,
+          "scale_boost": booter.cfg.scale_boost, "K": booter.cfg.K,
+          "sin_degree": booter.cfg.sin_degree,
+          "double_angles": booter.cfg.double_angles, "runs": runs,
+          "out_nl": out.nl, "precision_bits": prec,
+          "decrypt_host_s": decrypt_s, "kernel_launches": launches,
+          "reference": REFERENCE_RING16})
+    emit({"phase": "ring16_trace", "batch": batch, **trace,
+          "launch_shapes": _by_shape(calls, traced)})
+    if out.nl < REFERENCE_RING16["out_nl"] or not prec >= 4.0:
+        raise AssertionError(f"ring-2^16 bootstrap gave nl {out.nl} at "
+                             f"{prec} bits")
+    return launches
+
+
 # ---------------------------------------------------------------------------
 # phases 7 and 8
 
@@ -879,14 +986,44 @@ TOKEN_STAGES = ("attention", "wrap_tokens", "affine", "refresh",
                 "unwrap_tokens", "ffn", "ef_project", "pooler_classifier")
 
 
+def _device_gb(obj) -> float:
+    """GB of the device tensors reachable from a cache entry (tuples,
+    lists, dicts and the fields of plain objects such as Plaintext)."""
+    import torch
+    if isinstance(obj, torch.Tensor):
+        return obj.numel() * obj.element_size() / 2 ** 30 if obj.is_cuda \
+            else 0.0
+    if isinstance(obj, dict):
+        return sum(_device_gb(v) for v in obj.values())
+    if isinstance(obj, (tuple, list)):
+        return sum(_device_gb(v) for v in obj)
+    if hasattr(obj, "__dict__") and not isinstance(obj, type):
+        return sum(_device_gb(v) for v in vars(obj).values())
+    return 0.0
+
+
+def _memory_report(circ, boot) -> dict:
+    """torch.cuda.memory_allocated() and what the plaintext and key caches
+    hold: the evaluator's encode cache and baby-key stack, the
+    bootstrapper's folded diagonal dicts (host arrays: entries only) and
+    the circuit's weight plaintexts."""
+    import torch
+    ev = circ.ev
+    return {"memory_allocated_gb": torch.cuda.memory_allocated() / 2 ** 30,
+            "enc_cache": [len(ev._enc_cache), _device_gb(ev._enc_cache)],
+            "baby_stack_gb": _device_gb(ev._baby_stack),
+            "fold_cache_entries": len(boot._fold_cache),
+            "pt_cache": [len(circ._pt_cache), _device_gb(circ._pt_cache)]}
+
+
 @contextlib.contextmanager
 def _stage_log(circ, boot):
     """While the block runs, times each outermost call of the circuit's
     stage methods (and of boot.refresh) behind synchronizes, with the key
     switches and bootstrapped ciphertexts it counted, under
     layer<i>.<stage> (ef_project under the layer it feeds); each
-    encoder_layer call under layer<i> with its peak memory.  Yields the
-    dict it fills."""
+    encoder_layer call under layer<i> with its peak memory and, at its
+    start, `_memory_report`.  Yields the dict it fills."""
     import torch
     from fhe_linformer_tpu_torch.utils.timing import GLOBAL_TIMERS
     log: dict = {}
@@ -898,6 +1035,7 @@ def _stage_log(circ, boot):
             if layer_total:
                 state["layer"] += 1
                 key_ = f"layer{state['layer']}"
+                log.setdefault(key_, {})["start"] = _memory_report(circ, boot)
                 torch.cuda.reset_peak_memory_stats()
             elif state["depth"]:
                 return fn(*a, **kw)
@@ -915,8 +1053,9 @@ def _stage_log(circ, boot):
             finally:
                 if not layer_total:
                     state["depth"] -= 1
-            row = log.setdefault(key_, {"s": 0.0, "calls": 0, "keyswitch": 0,
-                                        "bootstrap": 0})
+            row = log.setdefault(key_, {})
+            for k in ("s", "calls", "keyswitch", "bootstrap"):
+                row.setdefault(k, 0)
             row["s"] += time.perf_counter() - t
             row["calls"] += 1
             for k in ("keyswitch", "bootstrap"):
@@ -950,6 +1089,7 @@ def _token_request(circ, boot, emb, want, extra_layers, caches, input_nl,
     ciphertext equals that one exactly.  Returns the output ciphertext."""
     import torch
     from fhe_linformer_tpu_torch.utils.timing import GLOBAL_TIMERS
+    start = _memory_report(circ, boot)
     torch.cuda.reset_peak_memory_stats()
     c0 = dict(GLOBAL_TIMERS.counts)
     with _stage_log(circ, boot) as log:
@@ -970,7 +1110,7 @@ def _token_request(circ, boot, emb, want, extra_layers, caches, input_nl,
     line = {"phase": "token_forward", "S": emb.shape[0] + 1,
             "layers": 1 + len(extra_layers), "plaintext_caches": caches,
             "request_s": forward_s + decrypt_s, "forward_s": forward_s,
-            "decrypt_host_s": decrypt_s, "stages": log,
+            "decrypt_host_s": decrypt_s, "start": start, "stages": log,
             "keyswitches": GLOBAL_TIMERS.counts["keyswitch"]
             - c0.get("keyswitch", 0),
             "bootstraps": GLOBAL_TIMERS.counts["bootstrap"]
@@ -1183,10 +1323,10 @@ def phase_cli():
 
 
 PHASES = ("card", "kernels", "keyswitch", "forward", "bootstrap",
-          "boot_forward", "token_forward", "cli")
+          "boot_forward", "token_forward", "ring16", "cli")
 PATHS = {"forward": phase_forward, "bootstrap": phase_bootstrap,
          "boot_forward": phase_boot_forward,
-         "token_forward": phase_token_forward}
+         "token_forward": phase_token_forward, "ring16": phase_ring16}
 
 
 def main(argv=None) -> int:
@@ -1208,7 +1348,8 @@ def main(argv=None) -> int:
         phase_card()
     if "kernels" in only:
         main_shapes, kernel_rows = phase_kernels(
-            Context(get("linformer-boot-w").ckks), Context(get("tiny").ckks))
+            Context(get("linformer-boot-w").ckks), Context(get("tiny").ckks),
+            Context(get("linformer-128c").ckks))
     if "keyswitch" in only:
         phase_keyswitch()
     paths = {name: run() for name, run in PATHS.items() if name in only}

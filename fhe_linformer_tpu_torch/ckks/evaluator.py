@@ -93,25 +93,30 @@ class Evaluator:
         return Plaintext(data if batch else data[0], nl, scale)
 
     def encode_cached(self, key, values, nl: int | None = None,
-                      scale: float | None = None,
-                      specials: bool = False) -> Plaintext:
-        """encode() memoized by a caller-supplied stable key."""
+                      scale: float | None = None, specials: bool = False,
+                      holds=None) -> Plaintext:
+        """encode() memoized by a caller-supplied stable key.  A key that
+        names an object by id() passes the object as `holds`: the entry
+        keeps it alive, so its id cannot pass to another object while the
+        entry lives."""
         k = (key, nl, scale, specials)
         if k not in self._enc_cache:
-            self._enc_cache[k] = self.encode(values, nl=nl, scale=scale,
-                                             specials=specials)
-        return self._enc_cache[k]
+            self._enc_cache[k] = (holds, self.encode(
+                values, nl=nl, scale=scale, specials=specials))
+        return self._enc_cache[k][1]
 
-    def encode_coeff_cached(self, key, values,
-                            scale: float | None = None) -> CoeffPlaintext:
+    def encode_coeff_cached(self, key, values, scale: float | None = None,
+                            holds=None) -> CoeffPlaintext:
         """Level-independent plaintext (scaled int64 coefficients on the
-        device), memoized by a caller-supplied stable key."""
+        device), memoized by a caller-supplied stable key (`holds` as for
+        encode_cached)."""
         k = (key, float(scale) if scale is not None else None, "coeff")
         if k not in self._enc_cache:
             sc = self.ctx.delta if scale is None else scale
             coeffs = self.encoder.encode(np.asarray(values), sc)
-            self._enc_cache[k] = CoeffPlaintext(self.ctx.tensor(coeffs), sc)
-        return self._enc_cache[k]
+            self._enc_cache[k] = (holds, CoeffPlaintext(
+                self.ctx.tensor(coeffs), sc))
+        return self._enc_cache[k][1]
 
     def encode_const(self, c: float, nl: int | None = None,
                      scale: float | None = None) -> Plaintext:

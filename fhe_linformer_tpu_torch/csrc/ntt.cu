@@ -70,9 +70,11 @@
 // the rescale's top limb is read in place.
 //
 // Overlap: a block takes 512 threads x 64 registers at 2^15, half the
-// register file, so two blocks (two half rows) run on each SM.  Blocks go
-// prime by prime (`RowMap`), so the rows of one prime share its twiddle
-// table in L2.
+// register file, so two blocks (two half rows) run on each SM.  At 2^16
+// (1024 threads, phase 1 five stages, skew 5, 139 KB of shared memory) a
+// block takes the whole register file: one block per SM, whose loads
+// nothing else hides.  Blocks go prime by prime (`RowMap`), so the rows of
+// one prime share its twiddle table in L2.
 //
 // Rows: a limb map (D, L) names the basis index of each row of the limb
 // axis, per entry of the leading axis, so the D digits of a key-switch
@@ -288,6 +290,7 @@ ntt_fwd_kernel(const uint32_t* __restrict__ x, uint32_t* __restrict__ y,
   if constexpr (S1 > 1) stage_shared<1, false>(a, s_w + 2, s_ws + 2, q);
   if constexpr (S1 > 2) stage_shared<2, false>(a, s_w + 4, s_ws + 4, q);
   if constexpr (S1 > 3) stage_shared<3, false>(a, s_w + 8, s_ws + 8, q);
+  if constexpr (S1 > 4) stage_shared<4, false>(a, s_w + 16, s_ws + 16, q);
 
   // exchange 1: element tid + T k (line warp + (T / 32) k, skew k) to its
   // warp of phase 2
@@ -439,6 +442,7 @@ ntt_inv_kernel(const uint32_t* __restrict__ x, uint32_t* __restrict__ y,
   for (int k = 0; k < 32; ++k) a[k] = buf[tid + (T + 1) * k];
 
   // phase 1 (distances 1024 .. n/4)
+  if constexpr (S1 > 4) stage_shared<4, true>(a, s_w + 16, s_ws + 16, q);
   if constexpr (S1 > 3) stage_shared<3, true>(a, s_w + 8, s_ws + 8, q);
   if constexpr (S1 > 2) stage_shared<2, true>(a, s_w + 4, s_ws + 4, q);
   if constexpr (S1 > 1) stage_shared<1, true>(a, s_w + 2, s_ws + 2, q);
@@ -584,6 +588,7 @@ int ntt_forward(const void* x, void* y, const void* limb_map, int D, int M,
     case 13: return static_cast<int>(launch_fwd<13>(xi, yo, map, q, w, ws, s));
     case 14: return static_cast<int>(launch_fwd<14>(xi, yo, map, q, w, ws, s));
     case 15: return static_cast<int>(launch_fwd<15>(xi, yo, map, q, w, ws, s));
+    case 16: return static_cast<int>(launch_fwd<16>(xi, yo, map, q, w, ws, s));
     default:
       if (logn < 1 || logn > 10) return static_cast<int>(cudaErrorInvalidValue);
       ntt_fwd_kernel_small<<<map.work, 1 << (logn - 1),
@@ -624,6 +629,8 @@ int ntt_inverse(const void* x, void* y, const void* limb_map, int D, int M,
         launch_inv<14>(xi, yo, map, es, q, w, ws, n0, n0s, n1, n1s, s));
     case 15: return static_cast<int>(
         launch_inv<15>(xi, yo, map, es, q, w, ws, n0, n0s, n1, n1s, s));
+    case 16: return static_cast<int>(
+        launch_inv<16>(xi, yo, map, es, q, w, ws, n0, n0s, n1, n1s, s));
     default:
       if (logn < 1 || logn > 10) return static_cast<int>(cudaErrorInvalidValue);
       ntt_inv_kernel_small<<<map.work, 1 << (logn - 1),

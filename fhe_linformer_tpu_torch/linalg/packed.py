@@ -236,10 +236,11 @@ class PackedOps:
         products) is shared by every giant group; each group accumulates
         plaintext-weighted rows with one lazy mod-down; giant shifts
         without a dedicated key compose (rotate_any); plaintexts are
-        level-independent coefficient vectors, cached per diagonal.
-        Otherwise the babies are hoisted rotations and each group a sum of
-        plaintext products (eval plaintexts cached per level), rotated by
-        its giant shift.
+        level-independent coefficient vectors, cached per diagonal (keyed
+        by the dict's id; each cache entry holds the dict).  Otherwise the
+        babies are hoisted rotations and each group a sum of plaintext
+        products (eval plaintexts cached per level), rotated by its giant
+        shift.
 
         rescale_mode (double_rescale=True means "double"), with qd, qd2
         the top two primes:
@@ -291,7 +292,8 @@ class PackedOps:
             items = []
             for j, d in sorted(js.items()):
                 dk = np.roll(np.asarray(d), g * bs * stride)
-                cp = ev.encode_coeff_cached((id(diags), g, j), dk, scale=scale)
+                cp = ev.encode_coeff_cached((id(diags), g, j), dk, scale=scale,
+                                            holds=diags)
                 items.append((j * stride, cp))
             groups.append((g * bs * stride, items))
         if stage1 is not None and ev.has_rotation_keys(gs for gs, _ in groups):
@@ -316,7 +318,7 @@ class PackedOps:
             for j, d in sorted(js.items()):
                 dk = np.roll(np.asarray(d), g * bs * stride)
                 pt = ev.encode_cached((id(diags), g, j), dk, nl=ct.nl,
-                                      scale=scale)
+                                      scale=scale, holds=diags)
                 t = ev.mul_plain(babies[j * stride], pt, rescale=False)
                 inner = t if inner is None else ev.add(inner, t)
             rot = ev.rotate(inner, g * bs * stride) if g else inner

@@ -27,12 +27,12 @@ from .ntt import NttTables, is_limb_map
 
 # Each thread holds 32 elements of a half row in registers, n/64 threads a
 # block, two blocks a row: at least one warp (n >= 2**11), and at 2**15
-# 512 threads x 64 registers, so two blocks share an SM.  Ring 2**16 rows
-# would need 1024 threads at the same register budget, or a row split four
-# ways; both kernels are instantiated up to 2**15.  Below 2**11 (MIN_LOGN)
-# the rows go to the one-block-per-row radix-2 kernels
-# (`ntt_*_kernel_small`), whose schedule is the plain versions'.
-MAX_LOGN = 15
+# 512 threads x 64 registers, so two blocks share an SM.  At 2**16 (the
+# 128-bit preset's ring) a block has 1024 threads at the same register
+# budget and fills an SM alone.  Below 2**11 (MIN_LOGN) the rows go to the
+# one-block-per-row radix-2 kernels (`ntt_*_kernel_small`), whose schedule
+# is the plain versions'.
+MAX_LOGN = 16
 MIN_LOGN = 11
 SMALL_MIN_LOGN = 1
 
@@ -54,7 +54,17 @@ def _lib():
     return lib
 
 
+def check_ring(logn: int, lowest: int = SMALL_MIN_LOGN) -> None:
+    """Raises unless K1/K2 are built for ring 2^logn (`lowest`: the
+    smallest ring of the layout in question)."""
+    if logn < lowest:
+        raise ValueError(f"ring 2^{logn} is below K1/K2's 2^{lowest}")
+    if logn > MAX_LOGN:
+        raise ValueError(f"ring 2^{logn} is above K1/K2's 2^{MAX_LOGN}")
+
+
 def _check(x: torch.Tensor, t: NttTables, L: int) -> int:
+    check_ring(t.logn)
     if not x.is_cuda:
         raise ValueError("the CUDA NTT takes a CUDA tensor")
     if x.dtype != torch.int32:
@@ -62,9 +72,6 @@ def _check(x: torch.Tensor, t: NttTables, L: int) -> int:
     if x.dim() < 2 or x.shape[-1] != t.n or x.shape[-2] != L:
         raise ValueError(f"shape {tuple(x.shape)} does not match n={t.n}, "
                          f"{L} limbs")
-    if not SMALL_MIN_LOGN <= t.logn <= MAX_LOGN:
-        raise ValueError(f"ring 2^{t.logn} is outside K1/K2's "
-                         f"2^{SMALL_MIN_LOGN} to 2^{MAX_LOGN}")
     if x.device != t.device:
         raise ValueError(f"tensor on {x.device}, tables on {t.device}")
     return x.numel() // t.n
@@ -166,8 +173,7 @@ class _Layout:
     addresses (`csrc/ntt.cu` header)."""
 
     def __init__(self, logn: int):
-        if logn < MIN_LOGN:
-            raise ValueError(f"ring 2^{logn} is below K1/K2's 2^{MIN_LOGN}")
+        check_ring(logn, MIN_LOGN)
         self.H = 1 << (logn - 1)
         self.T = self.M3 = self.H // 32
         self.S1 = self.SKEW = logn - 11

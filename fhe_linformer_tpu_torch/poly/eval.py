@@ -168,38 +168,43 @@ class PolyEvaluator:
         while m < deg:
             giants[2 * m] = self._sq2m1(giants[m])
             m *= 2
-
-        def rec(c: np.ndarray) -> Ciphertext:
-            d = len(c) - 1
-            while d > 0 and c[d] == 0.0:
-                d -= 1
-            c = c[: d + 1]
-            if d < k:
-                if d == 0:
-                    return self.combine([(babies[1], 0.0)], c[0])
-                return self.combine([(babies[i], c[i])
-                                     for i in range(1, d + 1)], c[0])
-            m = k
-            while 2 * m <= d:
-                m *= 2
-            q, r = cheb_divmod(c, m)
-            left = self._mul(rec_or_const(q), giants[m])
-            if np.any(r != 0.0):
-                left, right = self._match(left, rec(np.asarray(r)))
-                return ev.add(left, right)
-            return left
-
-        def rec_or_const(c: np.ndarray) -> Ciphertext:
-            # the quotient may be a bare constant: fold via combine on T_1
-            if len(c) == 1 or not np.any(c[1:] != 0.0):
-                return self.combine([(babies[1], 0.0)], c[0])
-            return rec(np.asarray(c))
-
-        out = rec(coeffs)
+        out = self._series(coeffs, k, babies, giants)
         # exit-scale normalization (callers may square the result)
         if out.nl > 1 and abs(math.log2(out.scale / self.anchor)) > 0.25:
             out = ev.adjust(out, out.nl - 1, self.anchor)
         return out
+
+    def _series(self, c: np.ndarray, k: int, babies: dict,
+                giants: dict) -> Ciphertext:
+        """sum_i c_i T_i from the baby steps T_1..T_k and the giant steps
+        T_m, dividing by the largest giant step that fits.  A method, not a
+        nested closure: a recursive closure forms a reference cycle, which
+        would keep the whole power basis (GBs at a 128-ciphertext batch) on
+        the card until the garbage collector's next full pass."""
+        ev = self.ev
+        d = len(c) - 1
+        while d > 0 and c[d] == 0.0:
+            d -= 1
+        c = c[: d + 1]
+        if d < k:
+            if d == 0:
+                return self.combine([(babies[1], 0.0)], c[0])
+            return self.combine([(babies[i], c[i]) for i in range(1, d + 1)],
+                                c[0])
+        m = k
+        while 2 * m <= d:
+            m *= 2
+        q, r = cheb_divmod(c, m)
+        # the quotient may be a bare constant: fold via combine on T_1
+        quot = self.combine([(babies[1], 0.0)], q[0]) \
+            if len(q) == 1 or not np.any(q[1:] != 0.0) else \
+            self._series(np.asarray(q), k, babies, giants)
+        left = self._mul(quot, giants[m])
+        if np.any(r != 0.0):
+            left, right = self._match(left, self._series(np.asarray(r), k,
+                                                         babies, giants))
+            return ev.add(left, right)
+        return left
 
     def eval_chebyshev_function(self, f, ct: Ciphertext, a: float, b: float,
                                 degree: int) -> Ciphertext:

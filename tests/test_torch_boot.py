@@ -179,6 +179,32 @@ def test_poly_wide_chebyshev_bit_exact(env):
     np.testing.assert_allclose(got, want, atol=1e-3)
 
 
+@pytest.mark.parametrize("wide", [False, True], ids=["narrow", "wide"])
+def test_chebyshev_series_frees_its_basis(env, wide):
+    """eval_chebyshev_series leaves no reference cycle behind: its power
+    basis is freed when it returns, not at the garbage collector's next
+    full pass (a recursive closure over the basis kept config 5's
+    128-ciphertext GELU bases on the card between layers)."""
+    import gc
+    _, ev, _ = env
+    z = np.random.default_rng(5).uniform(-0.8, 0.8, ev.ctx.cfg.slots)
+    ct = ev.encrypt(z, nl=20)
+    coeffs = chebyshev_fit(np.sin, -1.0, 1.0, 13)
+    gc.collect()
+    gc.disable()
+    try:
+        out = PolyEvaluator(ev, wide=wide).eval_chebyshev_series(ct, coeffs)
+        gc.set_debug(gc.DEBUG_SAVEALL)
+        gc.collect()
+        left = [o for o in gc.garbage if isinstance(o, torch.Tensor)]
+    finally:
+        gc.set_debug(0)
+        gc.garbage.clear()
+        gc.enable()
+    assert left == []
+    np.testing.assert_allclose(np.real(ev.decrypt(out)), np.sin(z), atol=1e-2)
+
+
 @pytest.mark.parametrize("mode", ["single", "double", "raise", "lower"])
 def test_bsgs_diag_transform_modes_bit_exact(env, mode):
     """The BSGS transform's four rescale modes on complex diagonals, with

@@ -274,3 +274,27 @@ def test_heavy_and_fused_chunk_do_not_change_results(env):
               lambda ev: ev.square_double_minus_one(ct)):
         a, b = f(ops.ev), f(small)
         assert torch.equal(a.c0, b.c0) and torch.equal(a.c1, b.c1)
+
+
+@pytest.mark.parametrize("combo", [True, False], ids=["combo", "hoisted"])
+def test_diagonal_plaintexts_follow_a_new_dict(env, combo):
+    """bsgs_diag_transform caches its plaintexts under the diagonal dict's
+    id(): once a caller drops one dict, a new dict on the same evaluator
+    must get its own plaintexts, not the dropped dict's (CPython gives the
+    next dict a display or comprehension makes a freed dict's address)."""
+    _, ops = env
+    ev = Evaluator(ops.ev.ctx, ops.ev.keys)
+    pops = PackedOps(ev, d=D, bsgs_combo=combo)
+    rng = np.random.default_rng(60)
+    offsets = (0, 1, 3, 4, 6, 7)
+    ct = ev.encrypt(rng.uniform(-1, 1, SLOTS))
+    first = {k: rng.uniform(-0.5, 0.5, SLOTS) for k in offsets}
+    values = [rng.uniform(-0.5, 0.5, SLOTS) for _ in offsets]
+    pops.bsgs_diag_transform(ct, first, 4)
+    del first
+    second = {k: v for k, v in zip(offsets, values)}
+    got = pops.bsgs_diag_transform(ct, second, 4)
+    fresh = PackedOps(Evaluator(ops.ev.ctx, ops.ev.keys), d=D,
+                      bsgs_combo=combo).bsgs_diag_transform(ct, second, 4)
+    assert (got.nl, got.scale) == (fresh.nl, fresh.scale)
+    assert torch.equal(got.c0, fresh.c0) and torch.equal(got.c1, fresh.c1)
