@@ -11,14 +11,17 @@ Phases, each printing one JSON line:
                 card at every shape the main paths send it (K2 through the
                 port's `ntt.inv`, on the limb slices it reads in place; the
                 ring-2^8 kernels of the CLI phase; the ring-2^16 shapes of
-                phase ring16): exact equality, median time, the plain
-                version's time, and the least time the card could take
-                (`bound`)
+                phase ring16; the device slot decrypt's 3 limbs): exact
+                equality, median time, the plain version's time, and the
+                least time the card could take (`bound`)
   3. keyswitch - the CLI `bench` case: one Galois key switch at N = 2^15,
                 24 limbs, dnum 3, batch 4 (the yardstick for later speed
                 work); rotate_hoisted of the same ciphertext by 3 shifts,
                 bit for bit against the port's CPU path, ms per shift
-                beside a rotation's
+                beside a rotation's; the same switch on config 5's chain
+                with a full-basis key and with a reduced-basis key
+                (KSKey.max_nl 25), each bit for bit against the CPU path,
+                with their ms and key MB side by side
   4. forward  - the block-major encrypted Linformer (d = 128, k_lin = 32,
                 d_ffn = 512, 20 classes, random weights of seed 3) on the
                 linformer-boot-w parameters without bootstrapping, answering
@@ -39,7 +42,11 @@ Phases, each printing one JSON line:
                 inverse and GELU, degree-247 tanh, inputs at 12 limbs)
                 answering S = 128 (cold, warm) and S = 700 (6 chunks),
                 each checked against the golden model, then one traced warm
-                S = 128 request
+                S = 128 request (every request of phases 4, 6 and 7 also
+                decrypts its logit slots with decrypt_slots_device:
+                seconds, error against golden and the host decrypt, argmax;
+                it fails unless they are finite, within 0.05 of the host
+                decrypt and of the same argmax)
   7. token_forward - config 5: the per-token circuit (EncryptedLinformer)
                 with two bootstrapped layers on preset multi-layer, the
                 second layer's E/F compression homomorphic, S = 32; keys for
@@ -50,8 +57,16 @@ Phases, each printing one JSON line:
                 request's ciphertext against the cold one's (the same
                 encryption draws: equal bit for bit); at the start of each
                 request and layer, memory allocated and what each plaintext
-                and key cache holds; a traced warm request; one per-token
-                single-layer request at S = 128
+                and key cache holds; one per-token single-layer request
+                at S = 128
+ 7b. token_forward_ref - config 5 with tools/config5_run.py's key set
+                (the bootstrap's rotations full-basis, the other +/-2^i
+                reduced-basis at max_nl 25, conjugation, relinearisation)
+                through save_keys -> load_keys: cold and warm requests as
+                in phase 7 and a traced warm request, then its key GB,
+                keystore bytes, load seconds, per-layer peaks, key
+                switches per layer and stage and request seconds beside
+                the full-basis set's
   8. ring16   - preset linformer-128c (ring 2^16, 47 q-limbs, uniform
                 ternary secret, >= 128-bit classical security): context,
                 keys for the bootstrap's rotations and conjugation, the
@@ -62,7 +77,8 @@ Phases, each printing one JSON line:
   9. cli      - `python -m fhe_linformer_tpu_torch.cli` keygen, infer
                 (--keys-dir, --cls-only) and golden as subprocesses at
                 preset tiny on the card: exit codes and argmax
- 10. the `kernels` line: every kernel with its launches over phases 4-8
+ 10. the `kernels` line: every kernel with its launches over phases 4-8,
+     7b included
 
 It ends with {"ok": true, "device": {...}}.  Any failure raises and exits
 non-zero before that line.  There is no CPU path: the script refuses to run
@@ -112,6 +128,15 @@ REFERENCE_BOOT = {"out_nl": 23, "precision_bits": 7.03, "rotation_keys": 46}
 # same chain (tests/test_torch_ring16.py) and at least 4.0 bits
 REFERENCE_RING16 = {"out_nl": 2, "precision_bits": 4.61, "rotation_keys": 38}
 BOOT_CHUNK_CONFIG5 = 8   # ciphertexts per bootstrap in phase 7
+# tools/config5_run.py's reduced-key ceiling: the wide bootstrap consumes 36
+# of the multi-layer preset's 58 scaling limbs, plus a margin of 3
+BOOT_CONSUMED_WIDE = 36
+# the config-5 key set whose warm request is traced ("cli", phase 7, or
+# "reference", phase 7b): one traced request keeps the script at 720-820 s
+# on an H100
+TRACED_CONFIG5_KEYS = "reference"
+# config 5's model widths (tools/config5_run.py)
+CONFIG5_MODEL = {"d": 128, "k_lin": 32, "d_ffn": 512, "n_classes": 20}
 
 
 def emit(obj) -> None:
@@ -454,7 +479,12 @@ def phase_kernels(ctx, tiny, ring16):
             _inv_case(ctx.ntt, (8,), em45.act_idx, 0, gen, 20),
             _bc_case(ctx.ks_tables(21).bc, 21, 1, False, gen, 20),
             _bc_case(ctx.ks_tables(17).bc, 17, 8, False, gen, 20),
-            _bc_case(low.bc, 22, 8, False, gen, 20)]
+            _bc_case(low.bc, 22, 8, False, gen, 20),
+            # the device slot decrypt (decrypt_slots_device, phases 4, 6
+            # and 7): the inverse NTT of c0 + c1 s over the first 3 limbs
+            # of one output ciphertext (the packed pooler keeps chunk 0, so
+            # its output is one ciphertext, as config 5's)
+            _inv_case(ctx.ntt, (), (0, 1, 2), 0, gen, 20)]
     # the CLI phase's ring 2^8 (preset tiny): the one-block-per-row K1/K2
     # on a batch-8 key switch's rows at the top level (59 + 8 limbs, the
     # digit map), the rescale's top limb read in place, and K3's
@@ -483,8 +513,8 @@ def _keys_to(keys, device):
     """A KeySet with every tensor copied to `device`."""
     from fhe_linformer_tpu_torch.ckks.keys import (KeySet, KSKey, PublicKey,
                                                    SecretKey)
-    ks = lambda k: None if k is None else KSKey(k.b.to(device),
-                                                k.a.to(device), k.a_seed)
+    ks = lambda k: None if k is None else KSKey(
+        k.b.to(device), k.a.to(device), k.a_seed, k.max_nl)
     return KeySet(SecretKey(keys.sk.coeffs, keys.sk.eval_full.to(device)),
                   PublicKey(keys.pk.p0.to(device), keys.pk.p1.to(device)),
                   ks(keys.relin), {r: ks(k) for r, k in keys.rot.items()},
@@ -532,6 +562,73 @@ def phase_keyswitch():
           "rotate_hoisted_shifts": list(shifts),
           "rotate_hoisted_ms_per_shift": hoisted_ms / len(shifts),
           "rotate_hoisted_equals_cpu": True, "cpu_path_s": cpu_s})
+    del switch, ev, ct, cpu
+    _reduced_keyswitch()
+
+
+def _reduced_max_nl(preset) -> int:
+    return preset.ckks.num_scaling - BOOT_CONSUMED_WIDE + 3
+
+
+def _reduced_keyswitch(nl=24, batch=4):
+    """The phase's Galois key switch (N = 2^15, 24 limbs, dnum 3, batch 4)
+    on preset multi-layer's chain (59 q-limbs + 20 special), as config 5's
+    reference key set holds its keys: a rotation by 1 with a full-basis key
+    (79 rows) and by -1 with a reduced-basis key at max_nl 25 (45 rows),
+    timed in turns (full, reduced, reduced, full) and each held bit for bit
+    against the port's CPU path; key MB side by side."""
+    import torch
+    from fhe_linformer_tpu_torch.ckks import evaluator as evm
+    from fhe_linformer_tpu_torch.ckks.context import Context
+    from fhe_linformer_tpu_torch.ckks.keys import generate_keys
+    from fhe_linformer_tpu_torch.config import get
+    preset = get("multi-layer")
+    ctx = Context(preset.ckks)
+    max_nl = _reduced_max_nl(preset)
+    keys = generate_keys(ctx, rotations=(1,), rotations_reduced=(-1,),
+                         reduced_max_nl=max_nl)
+    ev = evm.Evaluator(ctx, keys)
+    z = np.random.default_rng(0).uniform(-1, 1, (batch, ctx.cfg.slots))
+    ct = ev.encrypt(z, nl=nl, batch=True)
+    ks = ctx.ks_tables(nl)
+    switch = {r: functools.partial(evm._galois_core, ctx, ct.c0, ct.c1,
+                                   ev._perm(r), keys.rot[r], ks)
+              for r in (1, -1)}
+    ms = {1: [], -1: []}
+    for r in (1, -1, -1, 1):
+        ms[r].append(cuda_ms(switch[r], reps=20))
+    t = time.perf_counter()
+    cpu = evm.Evaluator(Context(ctx.cfg, "cpu"), _keys_to(keys, "cpu"))
+    c0, c1 = ct.c0.cpu(), ct.c1.cpu()
+    cks = cpu.ctx.ks_tables(nl)
+    for r in (1, -1):
+        got = switch[r]()
+        want = evm._galois_core(cpu.ctx, c0, c1, cpu._perm(r),
+                                cpu.keys.rot[r], cks)
+        if not all(torch.equal(g.cpu(), w) for g, w in zip(got, want)):
+            raise AssertionError(f"the key switch by {r} (max_nl "
+                                 f"{keys.rot[r].max_nl}) differs from the "
+                                 "CPU path")
+    cpu_s = time.perf_counter() - t
+    fresh = float(np.abs(np.real(ev.decrypt(ct)) - z).max())
+    err = float(np.abs(np.real(ev.decrypt(ev.rotate(ct, -1)))
+                       - np.roll(z, 1, axis=-1)).max())
+    if not err < 2 * fresh:
+        raise AssertionError(f"the reduced-key rotation decrypts with error "
+                             f"{err}, a fresh encryption with {fresh}")
+    mb = {r: (k.b.numel() + k.a.numel()) * k.b.element_size() / 1e6
+          for r, k in keys.rot.items()}
+    emit({"phase": "keyswitch_reduced", "preset": preset.name,
+          "n": ctx.cfg.n, "num_q": ctx.num_q, "k_sp": ctx.k_sp,
+          "limbs": nl, "dnum": ctx.cfg.dnum, "batch": batch,
+          "full": {"shift": 1, "rows": keys.rot[1].b.shape[1],
+                   "key_mb": mb[1], "ms": ms[1]},
+          "reduced": {"shift": -1, "max_nl": keys.rot[-1].max_nl,
+                      "rows": keys.rot[-1].b.shape[1], "key_mb": mb[-1],
+                      "ms": ms[-1]},
+          "reduced_over_full_ms": float(np.mean(ms[-1]) / np.mean(ms[1])),
+          "equal_to_cpu_path": True, "cpu_path_s": cpu_s,
+          "fresh_decrypt_err": fresh, "rotate_decrypt_err": err})
 
 
 # ---------------------------------------------------------------------------
@@ -682,7 +779,7 @@ def _answer(circ, emb, log, boot=None, input_nl=None):
     """One request through the circuit's stages (PackedLinformer.forward
     split where its stages meet): encrypt at input_nl limbs, attention,
     affine1, ffn_gelu, affine2, pooler_classifier, decrypt.  Returns the
-    logits and the chunk count."""
+    logits, the chunk count and the output ciphertext."""
     import torch
     ev, w = circ.ev, circ.w
 
@@ -703,7 +800,30 @@ def _answer(circ, emb, log, boot=None, input_nl=None):
     t = time.perf_counter()
     logits = circ.decrypt_logits(out)
     log["decrypt"] = {"s": time.perf_counter() - t}
-    return logits, int(x.c0.shape[0])
+    return logits, int(x.c0.shape[0]), out
+
+
+def _device_logits(ev, out, want, host, stride=1) -> dict:
+    """decrypt_slots_device of the logit slots (slot i * stride of the
+    output ciphertext) beside the host decrypt's logits `host`: seconds,
+    max |err| against golden and against the host decrypt, argmax."""
+    idx = [i * stride for i in range(len(want))]
+    t = time.perf_counter()
+    dev = ev.decrypt_slots_device(out, idx).astype(np.float64)
+    s = time.perf_counter() - t
+    dev = dev.reshape(-1, len(idx))[0]
+    return {"s": s, "out_nl": out.nl, "log2_scale": float(np.log2(out.scale)),
+            "finite": bool(np.all(np.isfinite(dev))),
+            "max_abs_err_vs_golden": float(np.max(np.abs(dev - want))),
+            "max_abs_err_vs_host": float(np.max(np.abs(dev - host))),
+            "argmax": int(np.argmax(dev))}
+
+
+def _check_device_logits(what, dev, host):
+    if not (dev["finite"] and dev["max_abs_err_vs_host"] <= 0.05
+            and dev["argmax"] == int(np.argmax(host))):
+        raise AssertionError(f"{what}: decrypt_slots_device {dev} against "
+                             f"the host decrypt's logits {host}")
 
 
 def _request(phase, circ, emb, want, caches, boot=None, input_nl=None,
@@ -715,9 +835,10 @@ def _request(phase, circ, emb, want, caches, boot=None, input_nl=None,
     torch.cuda.reset_peak_memory_stats()
     before = dict(KERNEL_LAUNCHES)
     log: dict = {}
-    logits, chunks = _answer(circ, emb, log, boot, input_nl)
+    logits, chunks, out = _answer(circ, emb, log, boot, input_nl)
     S = emb.shape[0] + 1
     err = float(np.max(np.abs(logits - want)))
+    dev = _device_logits(circ.ev, out, want, logits)
     line = {"phase": phase, "S": S, "chunks": chunks,
             "plaintext_caches": caches,
             "request_s": sum(v["s"] for v in log.values()),
@@ -728,7 +849,8 @@ def _request(phase, circ, emb, want, caches, boot=None, input_nl=None,
             "golden_argmax": int(np.argmax(want)),
             "max_abs_logit_err": err,
             "max_memory_allocated_gb":
-                torch.cuda.max_memory_allocated() / 2 ** 30, **extra}
+                torch.cuda.max_memory_allocated() / 2 ** 30,
+            "decrypt_slots_device": dev, **extra}
     if boot is not None:
         line["bootstraps"] = sum(v.get("bootstrap", 0) for v in log.values())
     emit(line)
@@ -736,6 +858,7 @@ def _request(phase, circ, emb, want, caches, boot=None, input_nl=None,
             np.argmax(logits) != np.argmax(want) or not err <= 0.05:
         raise AssertionError(f"S={S}: logits {logits} vs golden {want} "
                              f"(max err {err})")
+    _check_device_logits(f"{phase} S={S}", dev, logits)
     return line
 
 
@@ -1083,10 +1206,12 @@ def _stage_log(circ, boot):
 def _token_request(circ, boot, emb, want, extra_layers, caches, input_nl,
                    same_as=None, **extra):
     """One request through EncryptedLinformer.forward, decrypted on the
-    host in float64; emits its line and fails unless the logits match
-    golden (argmax equal, max |err| <= 0.05) and, given `same_as` (an
-    earlier request's output from the same encryption draws), its output
-    ciphertext equals that one exactly.  Returns the output ciphertext."""
+    host in float64 and on the device (decrypt_slots_device); emits its
+    line and fails unless the logits match golden (argmax equal, max |err|
+    <= 0.05), the device's logits the host's (`_check_device_logits`) and,
+    given `same_as` (an earlier request's output from the same encryption
+    draws), its output ciphertext equals that one exactly.  Returns the
+    output ciphertext and the line."""
     import torch
     from fhe_linformer_tpu_torch.utils.timing import GLOBAL_TIMERS
     start = _memory_report(circ, boot)
@@ -1107,6 +1232,7 @@ def _token_request(circ, boot, emb, want, extra_layers, caches, input_nl,
     logits = vals[: len(want) * circ.ops.d: circ.ops.d]
     decrypt_s = time.perf_counter() - t
     err = float(np.max(np.abs(logits - want)))
+    dev = _device_logits(circ.ev, out, want, logits, stride=circ.ops.d)
     line = {"phase": "token_forward", "S": emb.shape[0] + 1,
             "layers": 1 + len(extra_layers), "plaintext_caches": caches,
             "request_s": forward_s + decrypt_s, "forward_s": forward_s,
@@ -1118,7 +1244,7 @@ def _token_request(circ, boot, emb, want, extra_layers, caches, input_nl,
             "argmax": int(np.argmax(logits)),
             "golden_argmax": int(np.argmax(want)),
             "max_abs_logit_err": err, "max_memory_allocated_gb": peak,
-            **extra}
+            "decrypt_slots_device": dev, **extra}
     if same_as is not None:
         line["equals_cold_ciphertext"] = (out.nl, out.scale) == \
             (same_as.nl, same_as.scale) and torch.equal(out.c0, same_as.c0) \
@@ -1128,11 +1254,12 @@ def _token_request(circ, boot, emb, want, extra_layers, caches, input_nl,
             np.argmax(logits) != np.argmax(want) or not err <= 0.05:
         raise AssertionError(f"token_forward S={line['S']}: logits {logits} "
                              f"vs golden {want} (max err {err})")
+    _check_device_logits(f"token_forward S={line['S']}", dev, logits)
     if same_as is not None and not line["equals_cold_ciphertext"]:
         raise AssertionError(f"token_forward S={line['S']}: the {caches} "
                              "request's ciphertext differs from the cold "
                              "request's on the same encryption draws")
-    return out
+    return out, line
 
 
 def _keys_equal(a, b) -> bool:
@@ -1142,26 +1269,45 @@ def _keys_equal(a, b) -> bool:
     return sorted(a.rot) == sorted(b.rot) and \
         torch.equal(a.pk.p0, b.pk.p0) and torch.equal(a.pk.p1, b.pk.p1) and \
         torch.equal(a.sk.eval_full, b.sk.eval_full) and \
-        all(torch.equal(x.b, y.b) and torch.equal(x.a, y.a) for x, y in pairs)
+        all(x.max_nl == y.max_nl and torch.equal(x.b, y.b)
+            and torch.equal(x.a, y.a) for x, y in pairs)
 
 
-def phase_token_forward(S=32, with_s128=True):
+def _config5_keys(key_set: str, preset, ctx, bootcfg) -> dict:
+    """generate_keys' arguments for config 5: "cli", the CLI's 71
+    full-basis rotations (cli._preset_rotations); "reference",
+    tools/config5_run.py's set, the bootstrap's rotations full-basis and
+    the other +/-2^i shifts reduced-basis at max_nl 58 - 36 + 3 = 25."""
+    from fhe_linformer_tpu_torch.boot.bootstrap import Bootstrapper
+    from fhe_linformer_tpu_torch.cli import _preset_rotations
+    if key_set == "cli":
+        return {"rotations": _preset_rotations(preset, ctx)}
+    pow2, step = set(), 1
+    while step < ctx.cfg.slots:
+        pow2 |= {step, -step}
+        step *= 2
+    boot_rots = set(Bootstrapper.rotations_for(ctx.cfg.n, bootcfg))
+    return {"rotations": tuple(sorted(boot_rots)),
+            "rotations_reduced": tuple(sorted(pow2 - boot_rots)),
+            "reduced_max_nl": _reduced_max_nl(preset)}
+
+
+def _config5(key_set: str, S: int, trace: bool):
     """Config 5 (preset multi-layer: two bootstrapped layers, the second's
     E/F compression homomorphic) on the per-token circuit at d = 128,
-    k_lin = 32, d_ffn = 512, 20 classes, S = 32 tokens, with
-    tools/config5_run.py's weights and calibration; keys for the CLI's
-    rotation set through save_keys -> load_keys; one cold and one warm
-    request, checked against the 2-layer golden; one traced warm request.
-    With `with_s128`, one per-token single-layer request at S = 128 with
-    phase 6's settings (same chain and keys: linformer-boot-w's scheme
-    parameters are multi-layer's)."""
+    k_lin = 32, d_ffn = 512, 20 classes, S tokens, with
+    tools/config5_run.py's weights and calibration, on the key set
+    `key_set` (_config5_keys) through save_keys -> load_keys: one cold and
+    one warm request, checked against the 2-layer golden, and with `trace`
+    a traced warm request.  Returns the evaluator, the bootstrapper, the
+    kernel launches of the requests and a summary for the comparison of
+    key sets."""
     import tempfile
     import torch
     from fhe_linformer_tpu_torch.boot.bootstrap import BootConfig, Bootstrapper
     from fhe_linformer_tpu_torch.ckks.context import Context
     from fhe_linformer_tpu_torch.ckks.evaluator import Evaluator
     from fhe_linformer_tpu_torch.ckks.keys import generate_keys
-    from fhe_linformer_tpu_torch.cli import _preset_rotations
     from fhe_linformer_tpu_torch.config import get
     from fhe_linformer_tpu_torch.io.serialize import load_keys, save_keys
     from fhe_linformer_tpu_torch.models import golden
@@ -1171,11 +1317,12 @@ def phase_token_forward(S=32, with_s128=True):
                                                       reset_launches)
     preset = get("multi-layer")
     ctx = Context(preset.ckks)
-    rots = _preset_rotations(preset, ctx)
+    bootcfg = BootConfig.wide_production()
+    kw = _config5_keys(key_set, preset, ctx, bootcfg)
     torch.cuda.synchronize()
     mem0 = torch.cuda.memory_allocated()
     t0 = time.perf_counter()
-    made = generate_keys(ctx, rotations=rots, conj=True)
+    made = generate_keys(ctx, conj=True, **kw)
     torch.cuda.synchronize()
     keygen_s = time.perf_counter() - t0
     key_gb = (torch.cuda.memory_allocated() - mem0) / 2 ** 30
@@ -1191,8 +1338,8 @@ def phase_token_forward(S=32, with_s128=True):
         torch.cuda.synchronize()
         load_s = time.perf_counter() - t0
     if not _keys_equal(keys, made):
-        raise AssertionError("the loaded keystore differs from the keys "
-                             "generated")
+        raise AssertionError(f"the loaded keystore ({key_set} keys) differs "
+                             "from the keys generated")
     del made
     torch.cuda.empty_cache()
     ev = Evaluator(ctx, keys)
@@ -1202,24 +1349,29 @@ def phase_token_forward(S=32, with_s128=True):
     # refresh run on 128 ciphertexts, bootstrapped 8 at a time (a
     # bootstrap's working set grows ~3.5 GB per ciphertext: 128 at once
     # wanted 17 GB more than was free, 16 at a time 3 GB more)
-    booter = Bootstrapper(ev, BootConfig.wide_production(),
-                          chunk=BOOT_CHUNK_CONFIG5)
+    booter = Bootstrapper(ev, bootcfg, chunk=BOOT_CHUNK_CONFIG5)
     boot_setup_s = time.perf_counter() - t0
-    emit({"phase": "token_forward_setup", "preset": preset.name,
-          "basis": len(ctx.basis), "rotation_keys": len(rots),
-          "conjugation_key": True, "keygen_s": keygen_s,
-          "key_memory_gb": key_gb, "keystore_files": files,
-          "keystore_bytes": disk, "save_keys_s": save_s,
-          "load_keys_s": load_s, "loaded_equals_generated": True,
-          "bootstrapper_setup_s": boot_setup_s,
-          "bootstrap_chunk": booter.chunk,
-          "memory_allocated_gb": torch.cuda.memory_allocated() / 2 ** 30})
+    reduced = {r: k.max_nl for r, k in keys.rot.items() if k.max_nl}
+    setup = {"phase": "token_forward_setup", "key_set": key_set,
+             "preset": preset.name, "basis": len(ctx.basis),
+             "rotation_keys": len(keys.rot),
+             "reduced_rotation_keys": len(reduced),
+             "reduced_max_nl": max(reduced.values(), default=None),
+             "conjugation_key": True, "keygen_s": keygen_s,
+             "key_memory_gb": key_gb, "keystore_files": files,
+             "keystore_bytes": disk, "save_keys_s": save_s,
+             "load_keys_s": load_s, "loaded_equals_generated": True,
+             "bootstrapper_setup_s": boot_setup_s,
+             "bootstrap_chunk": booter.chunk,
+             "memory_allocated_gb": torch.cuda.memory_allocated() / 2 ** 30}
+    emit(setup)
 
-    w1 = golden.random_weights(d=128, k_lin=32, d_ffn=512, n_classes=20,
-                               max_seq=S + 4, seed=3, scale=0.3)
-    w2 = golden.random_weights(d=128, k_lin=32, d_ffn=512, n_classes=20,
-                               max_seq=S + 4, seed=7, scale=0.3)
-    emb = np.random.default_rng(0).normal(0, 0.3, (S - 1, 128))
+    w1 = golden.random_weights(**CONFIG5_MODEL, max_seq=S + 4, seed=3,
+                               scale=0.3)
+    w2 = golden.random_weights(**CONFIG5_MODEL, max_seq=S + 4, seed=7,
+                               scale=0.3)
+    emb = np.random.default_rng(0).normal(0, 0.3,
+                                          (S - 1, CONFIG5_MODEL["d"]))
     # tools/config5_run.py: calibrated on the 2-layer golden
     _, inter = golden.forward(w1, emb, return_intermediates=True,
                               extra_layers=[w2])
@@ -1239,19 +1391,49 @@ def phase_token_forward(S=32, with_s128=True):
     # ciphertext bit for bit: the golden bound cannot see a layer computed
     # with another layer's weights
     draws = copy.deepcopy(ev._enc_rng)
-    cold = None
+    cold, lines = None, {}
     for caches in ("cold", "warm"):
         ev._enc_rng = copy.deepcopy(draws)
-        cold = _token_request(circ, booter, emb, inter["logits"], [w2],
-                              caches, 12, same_as=cold, preset=preset.name)
+        cold, lines[caches] = _token_request(
+            circ, booter, emb, inter["logits"], [w2], caches, 12,
+            same_as=cold, preset=preset.name, key_set=key_set)
     del cold
     launches = dict(KERNEL_LAUNCHES)
-    with _shape_census() as calls:
-        trace, runs = _device_breakdown(lambda: circ.forward(
-            emb, extra_layers=[w2], boot=booter, input_nl=12))
-    emit({"phase": "token_forward_trace", "S": S, "layers": 2,
-          "plaintext_caches": "warm", **trace,
-          "launch_shapes": _by_shape(calls, runs)})
+    if trace:
+        with _shape_census() as calls:
+            trace_line, runs = _device_breakdown(lambda: circ.forward(
+                emb, extra_layers=[w2], boot=booter, input_nl=12))
+        emit({"phase": "token_forward_trace", "S": S, "layers": 2,
+              "key_set": key_set, "plaintext_caches": "warm", **trace_line,
+              "launch_shapes": _by_shape(calls, runs)})
+    layers = ("layer1", "layer2")
+    summary = {
+        **{k: setup[k] for k in ("rotation_keys", "reduced_rotation_keys",
+                                 "key_memory_gb", "keystore_bytes",
+                                 "load_keys_s")},
+        "request_s": {c: ln["request_s"] for c, ln in lines.items()},
+        "layer_peak_gb": {c: [ln["stages"][k]["max_memory_allocated_gb"]
+                              for k in layers] for c, ln in lines.items()},
+        "keyswitches": lines["warm"]["keyswitches"],
+        "keyswitches_by_stage": {k: v["keyswitch"] for k, v in
+                                 lines["warm"]["stages"].items()}}
+    return ev, booter, launches, summary
+
+
+# each config-5 key set's summary (_config5), for phase 7b's comparison
+CONFIG5_SUMMARY: dict = {}
+
+
+def phase_token_forward(S=32, with_s128=True):
+    """Config 5 on the CLI's full-basis key set (_config5), then, with
+    `with_s128`, one per-token single-layer request at S = 128 with phase
+    6's settings (same chain and keys: linformer-boot-w's scheme
+    parameters are multi-layer's)."""
+    from fhe_linformer_tpu_torch.models import golden
+    from fhe_linformer_tpu_torch.models.circuit import EncryptedLinformer
+    from fhe_linformer_tpu_torch.utils.timing import KERNEL_LAUNCHES
+    ev, booter, launches, CONFIG5_SUMMARY["cli"] = _config5(
+        "cli", S, trace=TRACED_CONFIG5_KEYS == "cli")
     if with_s128:
         w = golden.random_weights(d=128, k_lin=32, d_ffn=512, n_classes=20,
                                   max_seq=128 + 4, seed=3, scale=0.3)
@@ -1261,10 +1443,24 @@ def phase_token_forward(S=32, with_s128=True):
         circ = EncryptedLinformer(ev, w, p128)
         before = dict(KERNEL_LAUNCHES)
         _token_request(circ, booter, e128, i128[0]["logits"], [], "cold", 12,
-                       preset="linformer-boot-w",
+                       preset="linformer-boot-w", key_set="cli",
                        reference_keyswitches=16908, reference_bootstraps=7)
         for k in launches:
             launches[k] += KERNEL_LAUNCHES[k] - before[k]
+    return launches
+
+
+def phase_token_forward_ref(S=32):
+    """Config 5 on tools/config5_run.py's key set (_config5 "reference"),
+    on a card the earlier phases have released, then its numbers beside
+    the full-basis set's (phase 7's, when it ran)."""
+    import gc
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+    _, _, launches, CONFIG5_SUMMARY["reference"] = _config5(
+        "reference", S, trace=TRACED_CONFIG5_KEYS == "reference")
+    emit({"phase": "token_forward_key_sets", "S": S, **CONFIG5_SUMMARY})
     return launches
 
 
@@ -1323,10 +1519,12 @@ def phase_cli():
 
 
 PHASES = ("card", "kernels", "keyswitch", "forward", "bootstrap",
-          "boot_forward", "token_forward", "ring16", "cli")
+          "boot_forward", "token_forward", "token_forward_ref", "ring16",
+          "cli")
 PATHS = {"forward": phase_forward, "bootstrap": phase_bootstrap,
          "boot_forward": phase_boot_forward,
-         "token_forward": phase_token_forward, "ring16": phase_ring16}
+         "token_forward": phase_token_forward,
+         "token_forward_ref": phase_token_forward_ref, "ring16": phase_ring16}
 
 
 def main(argv=None) -> int:

@@ -7,13 +7,14 @@ its jitted cores compute (each returns canonical residues, so results are
 bit-identical given the same inputs).  Running scale lives on the host
 wrapper.  Heavy ops process at most `heavy_chunk` ciphertexts at a time
 (the fused Chebyshev nodes `fused_chunk`) to bound the key switch's
-intermediates (~12x the ciphertext volume).  Not ported: the on-device
-slot decode and the sharded key switch.
+intermediates (~12x the ciphertext volume).  Not ported: the sharded key
+switch.
 
-Every key switch funnels through `_keyswitch_many`: inverse NTT of the
-input (kernel K2), digit decomposition by fused base conversion (K3) and
-forward NTT of the digit rows (K1), key inner products, then the mod-down
-(K2, K3 prefolded, K1).
+Every key switch funnels through `_galois_many` or `_relin`: inverse NTT
+of the input (kernel K2), digit decomposition by fused base conversion
+(K3) and forward NTT of the digit rows (K1), the key inner products
+(`_inner_ext`, which reads each key's own rows: full-basis or
+reduced-basis, KSKey.max_nl), then the mod-down (K2, K3 prefolded, K1).
 """
 
 from __future__ import annotations
@@ -53,6 +54,7 @@ class Evaluator:
         self._host_ntt: dict[int, NttTables] = {}
         self._sk_host: torch.Tensor | None = None
         self._baby_stack = None
+        self._slotdec_cache: dict = {}
 
     def prefetch_host_sk(self) -> None:
         """Keep a host copy of the secret key's eval-domain residues, so
@@ -163,15 +165,21 @@ class Evaluator:
         """Decrypt + decode to complex slot values (batched): m_eval and
         its inverse NTT on the device, then the centered CRT lift of the
         first crt_limbs limbs and the decode on the host in float64."""
-        ctx = self.ctx
-        sk = self._require_keys("decrypt").sk
-        assert sk is not None, "secret key not retained"
         ct = self.drop_to(ct, min(ct.nl, max(crt_limbs, 1)))
+        coeffs = self._coeff_residues(ct, "decrypt").cpu().numpy()
+        return self._decode(coeffs, ct, min(crt_limbs, ct.nl))
+
+    def _coeff_residues(self, ct: Ciphertext, what: str) -> torch.Tensor:
+        """The coefficient residues of c0 + c1*s over ct's limbs, on the
+        device (the inverse NTT is K2 on a CUDA tensor)."""
+        ctx = self.ctx
+        sk = self._require_keys(what).sk
+        if sk is None:
+            raise RuntimeError(f"{what} needs the secret key")
         limbs = ctx.limb_idx(ct.nl)
         q = ctx.mod(limbs)
         m_eval = addmod(ct.c0, mulmod(ct.c1, sk.eval_full[: ct.nl], q), q)
-        coeffs = ntt.inv(m_eval, ctx.ntt, limbs).cpu().numpy()
-        return self._decode(coeffs, ct, min(crt_limbs, ct.nl))
+        return ntt.inv(m_eval, ctx.ntt, limbs)
 
     def decrypt_host(self, ct: Ciphertext, crt_limbs: int = 3) -> np.ndarray:
         """decrypt() entirely on the host: the first crt_limbs rows are
@@ -191,6 +199,46 @@ class Evaluator:
         coeffs = ntt.inv_plain(addmod(c0, mulmod(c1, s, q), q), t,
                                tuple(range(m)))
         return self._decode(coeffs.numpy(), ct, m)
+
+    def decrypt_slots_device(self, ct: Ciphertext, slot_idx,
+                             crt_limbs: int = 3) -> np.ndarray:
+        """Decrypt and decode only the slots `slot_idx`, on the device:
+        float32 (*batch, len(slot_idx)), the only copy to the host.
+
+        Exact integers until the decode: m = c0 + c1*s over the first m =
+        min(crt_limbs, nl) limbs, its inverse NTT (K2 on a CUDA tensor),
+        then the JAX package's centred CRT without big integers
+        (`_crt_low_and_carry`, bit for bit): t_i = r_i*(Q/q_i)^-1 mod q_i,
+        the overflow k = round(sum t_i/q_i) in float32 (exact while
+        |x| << Q), the low word y = x mod 2^32 = sum t_i*U_i - k*(Q mod
+        2^32) and the carry c = (r_0 - y)*2^-32 mod q_0, centred in
+        integers.  The decode is a float32 product of three planes of x =
+        lo + 2^16 hi + 2^32 c with the requested rows of the inverse
+        canonical embedding (cos(pi*j*5^s/n)), in true float32 (TF32 would
+        lose 10 bits: it raises unless torch.get_float32_matmul_precision()
+        is "highest").
+
+        The planes are balanced (`_balanced_planes`: lo and hi in
+        [-2^15, 2^15]), unlike the JAX package's unsigned 16-bit halves of
+        y, where a small negative coefficient is 65535 in hi16 and -1 in
+        the carry: those planes' dot products cancel, and their float32
+        rounding, scaled by 2^16 and 2^32, cost 0.153 per slot against the
+        host decrypt on config 5's output (n = 2^15, scale 2^25.9, an
+        H100; the JAX package's own record is 0.032 at S = 700).
+        Balanced, the error is about sqrt(n)*2^-24*|x|_rms/scale: 2e-8
+        there, 8e-8 at n = 256 where the JAX split gives 2.3e-4
+        (tests/test_torch_slot_decrypt.py).  Still a check of a run, never
+        the parity number: that is decrypt_host's float64 decode."""
+        m = min(crt_limbs, ct.nl)
+        ct = self.drop_to(ct, m)
+        r = self._coeff_residues(ct, "decrypt_slots_device")
+        key = (m, tuple(int(i) for i in slot_idx))
+        if key not in self._slotdec_cache:
+            self._slotdec_cache[key] = _slot_tables(self.ctx, self.encoder,
+                                                    *key)
+        out = _slots_from_residues(r, self.ctx.mod(self.ctx.limb_idx(m)),
+                                   self._slotdec_cache[key], 1.0 / ct.scale)
+        return out.cpu().numpy()
 
     def _decode(self, coeffs: np.ndarray, ct: Ciphertext, m: int):
         qs = self.ctx.qs[:m]
@@ -671,16 +719,22 @@ class Evaluator:
 
     def baby_key_stack(self, shifts, nl: int):
         """(kb, ka): the rotation keys of `shifts` stacked, each (ndig,
-        nl + k, N) rows of level nl (actives, then specials), cached for
-        the last (shifts, nl) asked."""
+        nl + k, N) rows of level nl (actives, then specials; each key's own
+        rows, so full-basis and reduced-basis keys mix), cached for the
+        last (shifts, nl) asked."""
         key = (tuple(shifts), nl)
         if self._baby_stack is not None and self._baby_stack[0] == key:
             return self._baby_stack[1]
-        rows = torch.tensor(self.ctx.limb_idx(nl, specials=True),
-                            device=self.ctx.device)
-        keys = [self._rot_key(r) for r in shifts]
-        val = (torch.stack([k.b.index_select(1, rows) for k in keys]),
-               torch.stack([k.a.index_select(1, rows) for k in keys]))
+        ctx = self.ctx
+        kbs, kas = [], []
+        for r in shifts:
+            k = self._rot_key(r)
+            sp = k.sp_row(ctx, nl)
+            rows = torch.tensor([*range(nl), *range(sp, sp + ctx.k_sp)],
+                                device=ctx.device)
+            kbs.append(k.b.index_select(1, rows))
+            kas.append(k.a.index_select(1, rows))
+        val = (torch.stack(kbs), torch.stack(kas))
         self._baby_stack = (key, val)
         return val
 
@@ -842,15 +896,18 @@ def _hoist_decompose(ctx: Context, c1, ks: LevelKS):
 def _inner_ext(ctx: Context, y_e, key: KSKey, ks: LevelKS):
     """Key-digit inner products over the extended basis Q u P (the mod-down
     is the caller's).  The key's rows are read in place: actives [0, nl)
-    and the specials block."""
+    and the specials block, which starts at row num_q of a full-basis key
+    and at row max_nl of a reduced-basis one (a level above max_nl
+    raises)."""
     nd = y_e.shape[0]
     nl = ks.nl
+    sp = key.sp_row(ctx, nl)
     bshape = (nd,) + (1,) * (y_e.dim() - 3)
     out = []
     for half in (key.b, key.a):
         parts = []
         for y, k, q in ((y_e[..., :nl, :], half[:nd, :nl], ks.q_act),
-                        (y_e[..., nl:, :], half[:nd, ctx.num_q:], ks.q_sp)):
+                        (y_e[..., nl:, :], half[:nd, sp:], ks.q_sp)):
             k = k.reshape(bshape + k.shape[1:])
             prod = torch.remainder(y.long() * k, q)
             parts.append(torch.remainder(prod.sum(0), q).int())
@@ -921,3 +978,77 @@ def _mul2_tail(ctx: Context, a0, a1, b0, b1, relin: KSKey, ks: LevelKS):
     q = ks.q_act
     c0, c1 = _mul_relin_core(ctx, a0, a1, b0, b1, relin, ks)
     return addmod(c0, c0, q), addmod(c1, c1, q)
+
+
+# ----------------------------------------------------------------------
+# the on-device slot decode
+# ----------------------------------------------------------------------
+
+def _slot_tables(ctx: Context, encoder: Encoder, m: int, slot_idx):
+    """The constants of decrypt_slots_device over the first m limbs:
+    (Q/q_i)^-1 mod q_i, U_i = (Q/q_i) mod 2^32, Q mod 2^32, 2^-32 mod q_0
+    (int64) and the requested rows of the inverse canonical embedding
+    (float32 (k, n))."""
+    qs = [int(x) for x in ctx.qs[:m]]
+    big_q = 1
+    for x in qs:
+        big_q *= x
+    as_col = lambda v: ctx.tensor(np.asarray(v, np.int64).reshape(-1, 1))
+    n = ctx.cfg.n
+    kf = encoder.k_fwd[np.asarray(slot_idx, np.int64)]
+    j = np.arange(n, dtype=np.float64)
+    # slot_s = sum_j x_j * cos(pi * j * (2 k_fwd[s] + 1) / n) / scale
+    rows = np.cos(np.pi * np.outer(2 * kf + 1, j) / n).astype(np.float32)
+    return (as_col([pow(big_q // qi, -1, qi) for qi in qs]),
+            as_col([(big_q // qi) % (1 << 32) for qi in qs]),
+            big_q % (1 << 32), pow((1 << 32) % qs[0], -1, qs[0]),
+            ctx.tensor(rows))
+
+
+def _crt_low_and_carry(r, q, tab):
+    """(t, k, y, c), int64: x = y + 2^32 c is the centred CRT lift of the
+    coefficient residues r (..., m, n), with t_i = r_i (Q/q_i)^-1 mod q_i,
+    the overflow count k, the low word y = x mod 2^32 in [0, 2^32) and
+    the carry c centred in (-q_0/2, q_0/2].  The JAX package's u32
+    wraparound is int64 arithmetic masked to 32 bits (products < 2^62)."""
+    inv_t, u_i, uq, inv32 = tab[:4]
+    mask = 0xFFFFFFFF
+    t = mulmod(r, inv_t, q).long()
+    qf = q.float()
+    frac = t[..., 0, :].float() / qf[0]
+    for i in range(1, t.shape[-2]):              # the JAX sum's order
+        frac = frac + t[..., i, :].float() / qf[i]
+    k = torch.round(frac).long()
+    y = ((t * u_i) & mask).sum(-2) & mask
+    y = (y - ((k * uq) & mask)) & mask
+    q0 = q[0].long()
+    d = submod(r[..., 0, :].long(), y % q0, q0)
+    c = (d * inv32) % q0
+    return t, k, y, torch.where(c > q0 // 2, c - q0, c)
+
+
+def _balanced_planes(y, c):
+    """(lo, hi, c') int64 with x = y + 2^32 c = lo + 2^16 hi + 2^32 c',
+    lo and hi in [-2^15, 2^15]: y taken as a signed word (c' = c + 1
+    where y >= 2^31, so c' = 0 for |x| < 2^31), then split in balanced
+    16-bit digits."""
+    top = y >= 1 << 31
+    ys = torch.where(top, y - (1 << 32), y)
+    lo = ((ys + (1 << 15)) & 0xFFFF) - (1 << 15)
+    return lo, (ys - lo) >> 16, c + top.long()
+
+
+def _slots_from_residues(r, q, tab, scale_inv: float):
+    """The requested slots (..., k) float32 from coefficient residues
+    (..., m, n): the decode of x's balanced planes in float32."""
+    if torch.get_float32_matmul_precision() != "highest":
+        raise RuntimeError(
+            "decrypt_slots_device needs true float32 products, but "
+            "torch.get_float32_matmul_precision() is "
+            f"{torch.get_float32_matmul_precision()!r}")
+    rows = tab[4]
+    _, _, y, c = _crt_low_and_carry(r, q, tab)
+    planes = torch.stack([p.float() for p in _balanced_planes(y, c)])
+    dots = planes @ rows.T                       # (3, ..., k)
+    v = dots[0] + 65536.0 * dots[1] + 4294967296.0 * dots[2]
+    return v * float(np.float32(scale_inv))

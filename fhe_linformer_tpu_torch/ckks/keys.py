@@ -2,9 +2,10 @@
 
 Sampling is host numpy from `default_rng(cfg.seed)` in the JAX package's
 exact order (ternary secret, public key, relinearization key, the rotation
-keys in the order given, then the conjugation key), and each key's uniform
-`a` halves come from their own named seed (`seeded_uniform_eval`), so the
-key arrays equal the JAX package's for the same config.  The polynomial
+keys in the order given, the reduced-basis rotation keys not already
+present, then the conjugation key), and each key's uniform `a` halves come
+from their own named seed (`seeded_uniform_eval`), so the key arrays equal
+the JAX package's for the same config.  The polynomial
 arithmetic (NTTs, products) runs on the context's device.
 """
 
@@ -35,12 +36,27 @@ class PublicKey:
 @dataclass
 class KSKey:
     """One hybrid key-switch key (relinearization, a rotation or the
-    conjugation) over the full extended basis: (ndig, num_q + k_sp, N)
-    int32 per half.  The uniform `a` halves come from the named seed
-    `a_seed`, so a keystore may hold the seed instead of them."""
+    conjugation): (ndig, rows, N) int32 per half.  The rows are the full
+    extended basis (num_q + k_sp) or, for a reduced-basis key (`max_nl`
+    set), q-limbs [0, max_nl) and the specials: such a key serves levels
+    nl <= max_nl only, for circuit rotations that never run high in the
+    chain.  The uniform `a` halves come from the named seed `a_seed`, so
+    a keystore may hold the seed instead of them."""
     b: torch.Tensor
     a: torch.Tensor
     a_seed: tuple | None = None
+    max_nl: int | None = None    # None: full basis
+
+    def sp_row(self, ctx: Context, nl: int) -> int:
+        """The first row of the specials block; a key switch at level nl
+        reads rows [0, nl) and the block.  Raises when nl exceeds a
+        reduced key's basis."""
+        if self.max_nl is None:
+            return ctx.num_q
+        if nl > self.max_nl:
+            raise ValueError(f"level {nl} exceeds the reduced key basis "
+                             f"{self.max_nl}")
+        return self.max_nl
 
 
 @dataclass
@@ -116,20 +132,30 @@ class KeyGenerator:
         return PublicKey(submod(e, mulmod(a, s, q), q), a)
 
     def _ks_key(self, sk: SecretKey, s_prime: torch.Tensor,
-                tag: tuple) -> KSKey:
-        """Digits encrypting P*F_j*s' under s over the full basis; `tag`
-        names the seed of the uniform halves."""
+                tag: tuple, max_nl: int | None = None) -> KSKey:
+        """Digits encrypting P*F_j*s' under s over the full basis, or with
+        `max_nl` over q-limbs [0, max_nl) and the specials (a max_nl that
+        covers the chain means the full basis); `tag` names the seed of the
+        uniform halves, which covers the rows stored."""
         ctx = self.ctx
-        full = ctx.limb_idx(ctx.num_q, specials=True)
-        q = ctx.mod(full)
+        if max_nl is not None and max_nl >= ctx.num_q:
+            max_nl = None
+        rows = ctx.limb_idx(ctx.num_q if max_nl is None else max_nl,
+                            specials=True)
+        q = ctx.mod(rows)
         P = 1
         for p in ctx.ps:
             P *= p
         groups = ctx.digit_groups_full()
-        seed = (ctx.cfg.seed & 0x7FFFFFFF, 0xA5) + tuple(tag)
+        seed = (ctx.cfg.seed & 0x7FFFFFFF, 0xA5) + tuple(tag) + \
+            (() if max_nl is None else (0x4E, max_nl))
         a_all = ctx.tensor(seeded_uniform_eval(
-            seed, [ctx.basis[i] for i in full], len(groups),
+            seed, [ctx.basis[i] for i in rows], len(groups),
             ctx.cfg.n).astype(np.int32))
+        s = sk.eval_full
+        if max_nl is not None:
+            idx = torch.tensor(rows, device=s.device)
+            s, s_prime = s.index_select(0, idx), s_prime.index_select(0, idx)
         bs = []
         for dj, g_full in enumerate(groups):
             F_j = 1
@@ -137,38 +163,48 @@ class KeyGenerator:
                 if i not in g_full:
                     F_j *= qq
             factor = ctx.tensor(np.asarray(
-                [(P * F_j) % ctx.basis[i] for i in full],
+                [(P * F_j) % ctx.basis[i] for i in rows],
                 np.int64).reshape(-1, 1).astype(np.int32))
-            e_j = self.to_eval(self.gauss(), full)
-            b_j = addmod(submod(e_j, mulmod(a_all[dj], sk.eval_full, q), q),
+            e_j = self.to_eval(self.gauss(), rows)
+            b_j = addmod(submod(e_j, mulmod(a_all[dj], s, q), q),
                          mulmod(s_prime, factor, q), q)
             bs.append(b_j)
-        return KSKey(torch.stack(bs), a_all, seed)
+        return KSKey(torch.stack(bs), a_all, seed, max_nl)
 
     def relin_key(self, sk: SecretKey) -> KSKey:
         q = self.ctx.mod(self.ctx.limb_idx(self.ctx.num_q, specials=True))
         s2 = mulmod(sk.eval_full, sk.eval_full, q)
         return self._ks_key(sk, s2, tag=(0, 0))
 
-    def rotation_key(self, sk: SecretKey, rot: int) -> KSKey:
+    def rotation_key(self, sk: SecretKey, rot: int,
+                     max_nl: int | None = None) -> KSKey:
         """Key switching tau_t(s) -> s for a rotation by `rot` slots."""
-        return self._galois_key(sk, self.ctx.galois_t(rot))
+        return self._galois_key(sk, self.ctx.galois_t(rot), max_nl)
 
     def conjugation_key(self, sk: SecretKey) -> KSKey:
         """Key switching tau_{2n-1}(s) -> s (complex conjugation)."""
         return self._galois_key(sk, self.ctx.conj_t())
 
-    def _galois_key(self, sk: SecretKey, t: int) -> KSKey:
+    def _galois_key(self, sk: SecretKey, t: int,
+                    max_nl: int | None = None) -> KSKey:
         s_rot = sk.eval_full[:, self.ctx.galois_perm(t)]
-        return self._ks_key(sk, s_rot, tag=(1, t))
+        return self._ks_key(sk, s_rot, tag=(1, t), max_nl=max_nl)
 
 
 def generate_keys(ctx: Context, rotations=(), conj: bool = False,
-                  keep_secret: bool = True) -> KeySet:
+                  keep_secret: bool = True, rotations_reduced=(),
+                  reduced_max_nl: int | None = None) -> KeySet:
+    """`rotations_reduced`: shifts whose keys cover only q-limbs [0,
+    reduced_max_nl) and the specials (KSKey.max_nl), for circuit rotations
+    that never run above that level; a shift also in `rotations` keeps its
+    full key."""
     kg = KeyGenerator(ctx)
     sk = kg.secret_key()
     pk = kg.public_key(sk)
     relin = kg.relin_key(sk)
     rot = {r: kg.rotation_key(sk, r) for r in rotations}
+    for r in rotations_reduced:
+        if r not in rot:
+            rot[r] = kg.rotation_key(sk, r, max_nl=reduced_max_nl)
     ck = kg.conjugation_key(sk) if conj else None
     return KeySet(sk if keep_secret else None, pk, relin, rot, ck)

@@ -31,9 +31,11 @@ def weights_from_numpy(arrays: dict) -> LinformerWeights:
 def keys_from_numpy(ctx: Context, sk_coeffs, sk_eval, pk_p0, pk_p1,
                     relin: tuple, rot: dict, conj: tuple | None = None
                     ) -> KeySet:
-    """Key arrays -> KeySet.  relin, conj: (b, a); rot: {shift: (b, a)},
-    each half (ndig, num_q + k_sp, N)."""
-    ks = lambda ba: KSKey(_res(ctx, ba[0]), _res(ctx, ba[1]))
+    """Key arrays -> KeySet.  relin, conj: (b, a); rot: {shift: (b, a)}
+    or, for a reduced-basis key, {shift: (b, a, max_nl)}; each half
+    (ndig, rows, N), rows num_q + k_sp or max_nl + k_sp."""
+    ks = lambda ba: KSKey(_res(ctx, ba[0]), _res(ctx, ba[1]),
+                          max_nl=ba[2] if len(ba) > 2 else None)
     return KeySet(
         sk=SecretKey(np.asarray(sk_coeffs, np.int8), _res(ctx, sk_eval)),
         pk=PublicKey(_res(ctx, pk_p0), _res(ctx, pk_p1)),

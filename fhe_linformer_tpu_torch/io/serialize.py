@@ -11,8 +11,8 @@ of those bytes; they are parsed here with numpy and checked with zlib.
 Keystore: a directory of npz files, `public.npz` (p0, p1), `relin.npz`,
 `rot_<shift>.npz`, `conj.npz` and, unless withheld, `secret.npz`.  A
 key-switch key holds `b` and either `a` or, compressed, the seed `a_seed`
-that regenerates `a`.  Reduced-basis keys (`max_nl`) are not supported and
-are refused.
+that regenerates `a`, and a reduced-basis key (KSKey.max_nl) its
+`max_nl`.
 """
 
 from __future__ import annotations
@@ -105,10 +105,13 @@ def save_keys(dirpath: str, keys: KeySet, include_secret: bool = False,
 
     def _save(name, k):
         path = os.path.join(dirpath, name)
+        extra = {} if k.max_nl is None else \
+            {"max_nl": np.asarray(k.max_nl, np.int64)}
         if compress and k.a_seed is not None:
-            np.savez(path, b=_u32(k.b), a_seed=np.asarray(k.a_seed, np.int64))
+            np.savez(path, b=_u32(k.b), a_seed=np.asarray(k.a_seed, np.int64),
+                     **extra)
         else:
-            np.savez(path, b=_u32(k.b), a=_u32(k.a))
+            np.savez(path, b=_u32(k.b), a=_u32(k.a), **extra)
 
     _save("relin.npz", keys.relin)
     for r, k in keys.rot.items():
@@ -122,25 +125,25 @@ def save_keys(dirpath: str, keys: KeySet, include_secret: bool = False,
 
 def load_keys(dirpath: str, ctx: Context) -> KeySet:
     """The keystore onto ctx's device; compressed keys regenerate their
-    `a` halves over ctx's basis."""
+    `a` halves over ctx's basis: the full extended basis, or a
+    reduced-basis key's q-limbs [0, max_nl) and the specials."""
     res = lambda a: ctx.tensor(np.asarray(a).astype(np.int32))
-    full = ctx.limb_idx(ctx.num_q, specials=True)
 
     def _ksk(name):
         z = np.load(os.path.join(dirpath, name))
-        if "max_nl" in z:
-            raise ValueError(
-                f"{name} is a reduced-basis key (max_nl={int(z['max_nl'])});"
-                " this package supports full-basis keys only")
+        max_nl = int(z["max_nl"]) if "max_nl" in z else None
+        rows = ctx.limb_idx(ctx.num_q if max_nl is None else max_nl,
+                            specials=True)
         ndig, nlimb, n = z["b"].shape
-        if nlimb != len(full) or n != ctx.cfg.n:
+        if nlimb != len(rows) or n != ctx.cfg.n:
             raise ValueError(f"{name} holds ({nlimb}, {n}) rows, the context "
-                             f"({len(full)}, {ctx.cfg.n})")
+                             f"({len(rows)}, {ctx.cfg.n}) for max_nl "
+                             f"{max_nl}")
         if "a" in z:
-            return KSKey(res(z["b"]), res(z["a"]))
+            return KSKey(res(z["b"]), res(z["a"]), max_nl=max_nl)
         seed = tuple(int(v) for v in z["a_seed"])
-        a = seeded_uniform_eval(seed, [ctx.basis[i] for i in full], ndig, n)
-        return KSKey(res(z["b"]), res(a), seed)
+        a = seeded_uniform_eval(seed, [ctx.basis[i] for i in rows], ndig, n)
+        return KSKey(res(z["b"]), res(a), seed, max_nl)
 
     zp = np.load(os.path.join(dirpath, "public.npz"))
     pk = PublicKey(res(zp["p0"]), res(zp["p1"]))

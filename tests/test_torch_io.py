@@ -4,9 +4,9 @@ security modules against the JAX package's, at n = 256.
   * ciphertexts written by either package load in the other and equal what
     it held: the JAX package's "native" sidecar pages (CRC-32 checked) and
     its inline layout, the port's inline layout
-  * keystores, plain and seed-compressed, both directions; the loaded keys
-    equal the port's own generate_keys for the same config; a
-    reduced-basis store (KSKey.max_nl) is refused
+  * keystores, plain and seed-compressed, both directions, with and
+    without reduced-basis keys (KSKey.max_nl); the loaded keys equal the
+    port's own generate_keys for the same config
   * reference weights: round trip, the legacy-name fallback, files the JAX
     package wrote and files it reads
   * client pipeline: embedding files, the E/F projection files, softmax
@@ -146,14 +146,59 @@ def test_port_keystore_loads_in_jax(env, tmp_path, compress):
     _keys_equal(keys, jloaded)
 
 
-def test_reduced_basis_keystore_refused(tmp_path):
+@pytest.fixture(scope="module")
+def reduced_env():
+    """Keys with reduced-basis rotations (max_nl 4 of 7 q-limbs) made by
+    both packages: 1 and -2 full, 2 and -8 reduced, 4 in both sets."""
+    kw = dict(rotations=(1, 4, -2), conj=True, rotations_reduced=(2, 4, -8),
+              reduced_max_nl=4)
     jctx = JContext(JConfig(**PARAMS))
-    jkeys = jgenerate_keys(jctx, rotations=(1,), rotations_reduced=(2,),
-                           reduced_max_nl=4)
+    ctx = Context(CKKSConfig(**PARAMS), device="cpu")
+    return jctx, jgenerate_keys(jctx, **kw), ctx, generate_keys(ctx, **kw)
+
+
+def _max_nls(keys):
+    return {r: k.max_nl for r, k in keys.rot.items()}
+
+
+@pytest.mark.parametrize("compress", [True, False],
+                         ids=["compressed", "plain"])
+def test_jax_reduced_keystore_loads(reduced_env, tmp_path, compress):
+    """A JAX keystore holding max_nl keys loads in the port: `max_nl`
+    carried, `a` regenerated over the key's own rows, keys equal."""
+    jctx, jkeys, ctx, keys = reduced_env
+    d = str(tmp_path / "keys")
+    jser.save_keys(d, jkeys, include_secret=True, compress=compress)
+    loaded = ser.load_keys(d, ctx)
+    assert _max_nls(loaded) == _max_nls(jkeys) == \
+        {1: None, 4: None, -2: None, 2: 4, -8: 4}
+    _keys_equal(loaded, jkeys)
+    _keys_equal(keys, jkeys)
+    assert (loaded.rot[2].a_seed is not None) == compress
+
+
+@pytest.mark.parametrize("compress", [True, False],
+                         ids=["compressed", "plain"])
+def test_port_reduced_keystore_loads_in_jax(reduced_env, tmp_path, compress):
+    jctx, jkeys, ctx, keys = reduced_env
+    d = str(tmp_path / "keys")
+    ser.save_keys(d, keys, include_secret=False, compress=compress)
+    assert int(np.load(os.path.join(d, "rot_-8.npz"))["max_nl"]) == 4
+    jloaded = jser.load_keys(d, ctx=jctx)
+    assert _max_nls(jloaded) == _max_nls(keys)
+    _keys_equal(keys, jloaded)
+
+
+def test_reduced_keystore_shape_checked(reduced_env, tmp_path):
+    """A reduced key's rows are checked against its own max_nl."""
+    jctx, jkeys, ctx, _ = reduced_env
     d = str(tmp_path / "keys")
     jser.save_keys(d, jkeys)
-    with pytest.raises(ValueError, match="reduced-basis"):
-        ser.load_keys(d, Context(CKKSConfig(**PARAMS), device="cpu"))
+    z = dict(np.load(os.path.join(d, "rot_2.npz")))
+    z["max_nl"] = np.asarray(5, np.int64)
+    np.savez(os.path.join(d, "rot_2.npz"), **z)
+    with pytest.raises(ValueError, match="max_nl 5"):
+        ser.load_keys(d, ctx)
 
 
 def _jw(seed=3):
