@@ -11,7 +11,8 @@ Phases, each printing one JSON line:
                 card at every shape the main paths send it (K2 through the
                 port's `ntt.inv`, on the limb slices it reads in place; the
                 ring-2^8 kernels of the CLI phase; the ring-2^16 shapes of
-                phase ring16; the device slot decrypt's 3 limbs): exact
+                phase ring16; the device slot decrypt's 3 limbs; the
+                sharded key switch's per-rank shapes of phase 9): exact
                 equality, median time, the plain version's time, and the
                 least time the card could take (`bound`)
   3. keyswitch - the CLI `bench` case: one Galois key switch at N = 2^15,
@@ -74,11 +75,28 @@ Phases, each printing one JSON line:
                 6 double angles) of 2 ciphertexts dropped to one limb, cold
                 and warm; limbs out, precision through the host decrypt,
                 peak memory, and a traced warm bootstrap
-  9. cli      - `python -m fhe_linformer_tpu_torch.cli` keygen, infer
+  9. parallel - fhe_linformer_tpu_torch/parallel on 2-4 processes that
+                share the card and exchange data through gloo, staged
+                through host buffers (the kernels are built before any
+                rank starts): the limb-sharded Galois switch and rotation
+                combo at ring 2^15 (24 + 8 rows, 8 per rank on 4 ranks)
+                through Evaluator.rotate / rotate_combo, equal to each
+                rank's single-process switch, with ms and collective bytes
+                per switch and each rank's keyswitch_sharded count; the
+                attention step on a 2 x 2 mesh against the plain NTT; then
+                2 ranks run the dp forwards: the dry-run's tiny profile
+                (per-token S = 6, packed S = 32) and, at full width, phase
+                6's bootstrapped packed S = 700 (6 chunks, batch_chunks)
+                and phase 7's per-token S = 128, each rank's output
+                ciphertext equal to this process's single-process one from
+                the same encryption (host decrypt against golden), each
+                rank below its key switches; one card measures no
+                multi-card speed
+ 10. cli      - `python -m fhe_linformer_tpu_torch.cli` keygen, infer
                 (--keys-dir, --cls-only) and golden as subprocesses at
                 preset tiny on the card: exit codes and argmax
- 10. the `kernels` line: every kernel with its launches over phases 4-8,
-     7b included
+ 11. the `kernels` line: every kernel with its launches over phases 4-9,
+     7b included (phase 9's ranks send theirs to this process)
 
 It ends with {"ok": true, "device": {...}}.  Any failure raises and exits
 non-zero before that line.  There is no CPU path: the script refuses to run
@@ -498,6 +516,7 @@ def phase_kernels(ctx, tiny, ring16):
              _bc_case(tk.md, tiny.k_sp, MODDOWN_BATCH, True, gen, 20,
                       n=tiny.cfg.n)]
     rows += _ring16_cases(ring16, gen)
+    rows += _parallel_cases(gen)
     main = {}
     for r in rows:
         emit({"phase": "kernels", **r})
@@ -1518,13 +1537,335 @@ def phase_cli():
 # ---------------------------------------------------------------------------
 
 
+# ---------------------------------------------------------------------------
+# phase 9: parallel/ on ranks that share the card
+
+
+# the sharded key switch's context: 24 q-limbs + 8 special = 32 rows, 8 per
+# rank on 4 limb ranks (the JAX dry-run's step 1e)
+PARALLEL_KS = {"n": 1 << 15, "num_scaling": 23, "dnum": 3}
+PARALLEL_RANKS = 4
+DP_RANKS = 2
+PARALLEL_TIMEOUT = 600           # seconds for each launch of ranks
+DRYRUN_PROFILE = (5, 40, 3)      # the dry-run's degree, num_scaling, dnum
+ATTENTION_N = 512
+# the full-width dp requests: (packed, S, bootstrap chunk): phase 6's
+# bootstrapped S = 700 (6 chunks) and phase 7's per-token S = 128
+DP_FULL_WIDTH = ((True, 700, 0), (False, 128, BOOT_CHUNK_CONFIG5))
+
+
+def _parallel_shards():
+    """The sharded key switch's context and each rank's tables at the top
+    level (phase 2 holds the kernels at their shapes)."""
+    from fhe_linformer_tpu_torch.ckks.context import CKKSConfig, Context
+    from fhe_linformer_tpu_torch.parallel.ksprod import (build_sharded_ks,
+                                                         rank_tables)
+    ctx = Context(CKKSConfig(scale_bits=26, seed=77, **PARALLEL_KS))
+    plan = build_sharded_ks(ctx, ctx.num_q, PARALLEL_RANKS)
+    return ctx, [rank_tables(ctx, plan, r) for r in range(PARALLEL_RANKS)]
+
+
+def _parallel_cases(gen):
+    """Phase 2's cases at the sharded key switch's per-rank shapes: K2 on a
+    rank's 8 rows of c1 (rank 0: limbs 0-7) and on the 8 special rows of
+    rank 3's accumulator (the mod-down); K1 on a rank's 3 x 8 digit rows
+    and its 8 mod-down rows (a table over the rank's own primes); K3 on
+    rank 0's slice of the digit groups (3 digits of 8 sources, targets the
+    32 rows) and on rank 3's specials (the mod-down's partial
+    conversion)."""
+    from fhe_linformer_tpu_torch.ops.ntt import NttTables
+    ctx, shards = _parallel_shards()
+    r0, r3 = shards[0], shards[-1]
+    own = NttTables(ctx.cfg.n, [ctx.basis[i] for i in r0.limbs], "cuda")
+    return [_inv_case(ctx.ntt, (), r0.limbs, 0, gen, 20),
+            _inv_case(ctx.ntt, (), r3.limbs, r3.sp0, gen, 20),
+            _fwd_case(own, ctx.cfg.dnum, len(r0.limbs), gen, 20),
+            _fwd_case(own, 1, len(r0.limbs), gen, 20),
+            _bc_case(r0.bc, r0.bc.nd * r0.bc.alpha, 1, False, gen, 20),
+            _bc_case(r3.md, r3.md.alpha, 1, True, gen, 20)]
+
+
+def _dp_make(keys, w, params, bootcfg, boot_chunk, packed):
+    """A dp rank's circuit and bootstrapper on the card (the `make` of
+    parallel.circuit.run_forward): linformer-boot-w's context and the
+    parent's keys (shared through CUDA IPC), phase 6's packed circuit with
+    batch_chunks or phase 7's per-token circuit."""
+    from fhe_linformer_tpu_torch.boot.bootstrap import Bootstrapper
+    from fhe_linformer_tpu_torch.ckks.context import Context
+    from fhe_linformer_tpu_torch.ckks.evaluator import Evaluator
+    from fhe_linformer_tpu_torch.config import get
+    from fhe_linformer_tpu_torch.models.circuit import EncryptedLinformer
+    from fhe_linformer_tpu_torch.models.circuit_packed import PackedLinformer
+    ev = Evaluator(Context(get("linformer-boot-w").ckks,
+                           keys.pk.p0.device), keys)
+    booter = Bootstrapper(ev, bootcfg, chunk=boot_chunk)
+    circ = PackedLinformer(ev, w, params, bs=16, batch_chunks=True) \
+        if packed else EncryptedLinformer(ev, w, params)
+    return circ, booter
+
+
+def _single_forward(circ, boot, inputs, S, packed):
+    """The single-process layer and pooler/classifier from the same
+    encrypted inputs the ranks get: (layer output, logits ciphertext,
+    seconds, key switches)."""
+    import torch
+    from fhe_linformer_tpu_torch.convert import ciphertext_from_numpy
+    from fhe_linformer_tpu_torch.utils.timing import GLOBAL_TIMERS
+    x, xe, xf = (ciphertext_from_numpy(circ.ev.ctx, *a) for a in inputs)
+    ks0 = GLOBAL_TIMERS.counts["keyswitch"]
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    y = circ.encoder_layer(x, xe, xf, S, boot=boot)
+    out = circ.pooler_classifier(y if packed
+                                 else y.with_data(y.c0[0], y.c1[0]), boot=boot)
+    torch.cuda.synchronize()
+    return y, out, time.perf_counter() - t, \
+        GLOBAL_TIMERS.counts["keyswitch"] - ks0
+
+
+def _same(a, b) -> bool:
+    """Two ciphertexts as convert.ciphertext_to_numpy arrays, equal bit for
+    bit."""
+    return tuple(a[2:]) == tuple(b[2:]) and np.array_equal(a[0], b[0]) \
+        and np.array_equal(a[1], b[1])
+
+
+def _host_logits(circ, out, packed):
+    vals = np.real(circ.ev.decrypt_host(out))
+    ncls = circ.w.Wc.shape[0]
+    return vals[:ncls] if packed else vals[: ncls * circ.ops.d: circ.ops.d]
+
+
+def _parallel_keyswitch(launches):
+    """Step 1: the limb-sharded Galois switch and combo (shifts 1, 2, 3) at
+    ring 2^15 on 4 ranks, through Evaluator.rotate / rotate_combo, and the
+    attention step on a 2 x 2 mesh; every rank holds its result to its own
+    single-process switch on the card."""
+    from fhe_linformer_tpu_torch.ops import ntt
+    from fhe_linformer_tpu_torch.ops.ntt import NttTables
+    from fhe_linformer_tpu_torch.parallel.dryrun import dryrun_worker
+    from fhe_linformer_tpu_torch.parallel.mesh import launch
+    from fhe_linformer_tpu_torch.primes import ntt_primes
+    import torch
+    qs = ntt_primes(2 * ATTENTION_N, 2)
+    rng = np.random.default_rng(1)
+    x = np.stack([[rng.integers(0, q, ATTENTION_N) for q in qs]
+                  for _ in range(4)]).astype(np.int32)
+    wt = np.stack([rng.integers(0, q, ATTENTION_N) for q in qs]
+                  ).astype(np.int32)
+    t = time.perf_counter()
+    res = launch(dryrun_worker, PARALLEL_RANKS, {
+        "device": "cuda",
+        "ksprod": dict(PARALLEL_KS, rot=1, shifts=(1, 2, 3), reps=10),
+        "attention": {"dp": 2, "limb": 2, "n": ATTENTION_N, "x": x,
+                      "wt": wt}}, timeout=PARALLEL_TIMEOUT)
+    wall = time.perf_counter() - t
+    cpu = NttTables(ATTENTION_N, qs, "cpu")
+    xt, wtt = torch.from_numpy(x), torch.from_numpy(wt)
+    want = ntt.inv_plain(torch.remainder(
+        ntt.fwd_plain(xt, cpu, (0, 1)).long() * wtt, cpu.q.view(-1, 1)),
+        cpu, (0, 1)).numpy()
+    for r in res:
+        a = r["attention"]
+        (b0, b1), (r0, r1) = a["batch"], a["rows"]
+        if not np.array_equal(a["z"], want[b0:b1, r0:r1]):
+            raise AssertionError("the attention step differs from the plain "
+                                 f"NTT at batch {b0}:{b1}, rows {r0}:{r1}")
+        for k in KERNELS:
+            launches[k] += r["launches"][k]
+    sharded = [r["keyswitch_sharded"] for r in res]
+    if min(sharded) <= 0:
+        raise AssertionError(f"keyswitch_sharded per rank {sharded}")
+    line = {"phase": "parallel_keyswitch", **PARALLEL_KS,
+            "ranks": PARALLEL_RANKS, "rows_per_rank": 8,
+            "transport": "gloo", "staging": "host", "launch_wall_s": wall,
+            "keyswitch_sharded_per_rank": sharded,
+            "equals_single_process": True, "attention_step_exact": True}
+    for op in ("rotate", "combo"):
+        timed = [r[op][1] for r in res]
+        line[op] = {"single_ms": timed[0]["single_ms"],
+                    "sharded_ms_per_rank": [t["sharded_ms"] for t in timed],
+                    "decrypt_err": timed[0]["err"],
+                    "collective_bytes_per_switch":
+                        timed[0]["collective_bytes_per_switch"]}
+    emit(line)
+
+
+def phase_parallel():
+    """`parallel/` on 2-4 processes sharing the card, exchanging data
+    through gloo with host-staged buffers (NCCL refuses two ranks on one
+    device): the numbers are exactness, shapes, per-shard kernels, memory
+    and bytes per collective, not a multi-card speed.  The kernels are
+    built here before any rank starts.  Step 1 (`_parallel_keyswitch`),
+    then one 2-rank launch of the dp forwards: the dry-run's tiny profile
+    (per-token S = 6, packed S = 32 as 2 chunks) and, at full width on
+    linformer-boot-w with keys the ranks share with this process, the
+    bootstrapped packed S = 700 request (6 chunks, batch_chunks) and the
+    per-token single-layer S = 128 request.  Each rank's output ciphertext
+    must equal this process's single-process one from the same encryption
+    exactly, whose host decrypt must match golden (argmax, 0.05); the
+    packed single-process forward with batch_chunks must equal the chunk
+    loop."""
+    import gc
+    import torch
+    from fhe_linformer_tpu_torch.boot.bootstrap import BootConfig, Bootstrapper
+    from fhe_linformer_tpu_torch.cli import _preset_rotations
+    from fhe_linformer_tpu_torch.ckks.context import Context
+    from fhe_linformer_tpu_torch.ckks.keys import generate_keys
+    from fhe_linformer_tpu_torch.config import get
+    from fhe_linformer_tpu_torch.models import golden
+    from fhe_linformer_tpu_torch.ops import cuda_build
+    from fhe_linformer_tpu_torch.convert import ciphertext_to_numpy
+    from fhe_linformer_tpu_torch.parallel.circuit import dryrun_circuit
+    from fhe_linformer_tpu_torch.parallel.dryrun import dryrun_worker
+    from fhe_linformer_tpu_torch.parallel.mesh import launch
+    from fhe_linformer_tpu_torch.utils.timing import (KERNEL_LAUNCHES,
+                                                      reset_launches)
+    cuda_build.build()
+    gc.collect()
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info()
+    emit({"phase": "parallel_setup", "free_gb": free / 2 ** 30,
+          "total_gb": total / 2 ** 30, "transport": "gloo",
+          "staging": "host", "note": "ranks share one card: exactness, "
+          "shapes, memory and bytes, no multi-card speed"})
+    reset_launches()
+    launches = {k: 0 for k in KERNELS}
+    _parallel_keyswitch(launches)
+
+    # the parent's single-process references, from the encryptions the
+    # ranks get
+    forwards, refs = [], []
+    for packed, S in ((False, 6), (True, 32)):
+        make_args = (S, *DRYRUN_PROFILE, packed, None, 11, "cuda")
+        circ, emb, want = dryrun_circuit(*make_args)
+        x, xe, xf, St = circ.encrypt_inputs(emb)
+        inputs = [ciphertext_to_numpy(c) for c in (x, xe, xf)]
+        y, out, sec, ks = _single_forward(circ, None, inputs, St, packed)
+        refs.append({"what": f"dryrun {'packed' if packed else 'token'}",
+                     "S": St, "packed": packed, "layer": y, "out": out,
+                     "s": sec, "keyswitch": ks, "circ": circ, "want": want})
+        forwards.append({"make_args": make_args, "inputs": inputs,
+                         "S_total": St, "packed": packed})
+    t = time.perf_counter()
+    ctx = Context(get("linformer-boot-w").ckks)
+    bootcfg = BootConfig.wide_production()
+    rots = set(_preset_rotations(get("linformer-boot-w"), ctx)) | set(
+        Bootstrapper.rotations_for(ctx.cfg.n, bootcfg)) | set(
+        _rotations(ctx.cfg.slots))
+    keys = generate_keys(ctx, rotations=tuple(sorted(rots)), conj=True)
+    torch.cuda.synchronize()
+    keygen_s = time.perf_counter() - t
+    for packed, S, chunk in DP_FULL_WIDTH:
+        w = golden.random_weights(d=128, k_lin=32, d_ffn=512, n_classes=20,
+                                  max_seq=S + 4, seed=3, scale=0.3)
+        emb = np.random.default_rng(0).normal(0, 0.3, (S - 1, 128))
+        params, (inter,) = _calibrated(golden, w, [emb], degree=119,
+                                       tanh_degree=247)
+        make_args = (keys, w, params, bootcfg, chunk, packed)
+        circ, booter = _dp_make(*make_args)
+        x, xe, xf, St = circ.encrypt_inputs(emb, nl=12)
+        inputs = [ciphertext_to_numpy(c) for c in (x, xe, xf)]
+        y, out, sec, ks = _single_forward(circ, booter, inputs, St, packed)
+        ref = {"what": f"{'packed' if packed else 'token'} full width",
+               "S": St, "packed": packed, "layer": y, "out": out, "s": sec,
+               "keyswitch": ks, "circ": circ, "want": inter["logits"]}
+        if packed:               # the chunk loop gives the same ciphertexts
+            circ.batch_chunks = False
+            y2, out2, ref["loop_s"], _ = _single_forward(circ, booter, inputs,
+                                                         St, True)
+            ref["batch_chunks_equals_loop"] = \
+                _same(ciphertext_to_numpy(y2), ciphertext_to_numpy(y)) and \
+                _same(ciphertext_to_numpy(out2), ciphertext_to_numpy(out))
+            if not ref["batch_chunks_equals_loop"]:
+                raise AssertionError("batch_chunks differs from the chunk "
+                                     "loop at S=700")
+            del y2, out2
+        refs.append(ref)
+        forwards.append({"make": _dp_make, "make_args": make_args,
+                         "inputs": inputs, "S_total": St, "packed": packed})
+        del booter, circ, y, out
+    for ref in refs:               # host decrypt against golden
+        logits = _host_logits(ref["circ"], ref["out"], ref["packed"])
+        ref["max_abs_logit_err"] = float(np.abs(logits - ref["want"]).max())
+        ref["argmax"] = int(np.argmax(logits))
+        if int(np.argmax(ref["want"])) != ref["argmax"] or \
+                not ref["max_abs_logit_err"] <= 0.05:
+            raise AssertionError(f"{ref['what']}: logits {logits} vs golden "
+                                 f"{ref['want']}")
+        ref["layer"], ref["out"] = ciphertext_to_numpy(ref["layer"]), \
+            ciphertext_to_numpy(ref["out"])
+        del ref["circ"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    free_before = torch.cuda.mem_get_info()[0]
+    # the ranks' allocators grow segments in place (two processes share the
+    # card: no memory stranded in half-used blocks); this process has
+    # allocated already and keeps its own
+    alloc_conf = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+    t = time.perf_counter()
+    try:
+        res = launch(dryrun_worker, DP_RANKS, {"device": "cuda",
+                                               "forwards": forwards},
+                     timeout=PARALLEL_TIMEOUT)
+    finally:
+        if alloc_conf is None:
+            del os.environ["PYTORCH_CUDA_ALLOC_CONF"]
+        else:
+            os.environ["PYTORCH_CUDA_ALLOC_CONF"] = alloc_conf
+    wall = time.perf_counter() - t
+    for k in KERNELS:
+        launches[k] += KERNEL_LAUNCHES[k] + sum(r["launches"][k] for r in res)
+    for i, ref in enumerate(refs):
+        ranks = [r["forwards"][i] for r in res]
+        holders = [r for r in ranks if r["out"] is not None]
+        equal = len(holders) == (1 if ref["packed"] else DP_RANKS) and all(
+            _same(r["out"], ref["out"]) for r in holders)
+        if ref["packed"]:
+            per = ref["layer"][0].shape[0] // DP_RANKS
+            equal = equal and all(
+                np.array_equal(r["layer"][0], ref["layer"][0][j * per:
+                                                              (j + 1) * per])
+                and np.array_equal(r["layer"][1],
+                                   ref["layer"][1][j * per:(j + 1) * per])
+                for j, r in enumerate(ranks))
+        emit({"phase": "parallel_dp", "forward": ref["what"], "S": ref["S"],
+              "ranks": DP_RANKS, "chunks": ref["layer"][0].shape[0]
+              if ref["packed"] else None,
+              "equals_single_process": equal,
+              "single_s": ref["s"], "single_loop_s": ref.get("loop_s"),
+              "batch_chunks_equals_loop": ref.get("batch_chunks_equals_loop"),
+              "rank_s": [r["s"] for r in ranks],
+              "single_keyswitches": ref["keyswitch"],
+              "rank_keyswitches": [r["keyswitch"] for r in ranks],
+              "collective_bytes": [r["collective_bytes"] for r in ranks],
+              "rank_max_memory_allocated_gb":
+                  [r["max_memory_allocated_gb"] for r in ranks],
+              "argmax": ref["argmax"],
+              "golden_argmax": int(np.argmax(ref["want"])),
+              "max_abs_logit_err": ref["max_abs_logit_err"],
+              **({"keygen_s": keygen_s, "rotation_keys": len(rots),
+                  "free_gb_before_spawn": free_before / 2 ** 30}
+                 if "full" in ref["what"] else {})})
+        if not equal:
+            raise AssertionError(f"{ref['what']}: a rank's output differs "
+                                 "from the single-process output")
+        if not all(r["keyswitch"] < ref["keyswitch"] for r in ranks):
+            raise AssertionError(f"{ref['what']}: a rank ran as many key "
+                                 "switches as the single process")
+    emit({"phase": "parallel_launch", "ranks": DP_RANKS, "wall_s": wall})
+    return launches
+
+
 PHASES = ("card", "kernels", "keyswitch", "forward", "bootstrap",
           "boot_forward", "token_forward", "token_forward_ref", "ring16",
-          "cli")
+          "parallel", "cli")
 PATHS = {"forward": phase_forward, "bootstrap": phase_bootstrap,
          "boot_forward": phase_boot_forward,
          "token_forward": phase_token_forward,
-         "token_forward_ref": phase_token_forward_ref, "ring16": phase_ring16}
+         "token_forward_ref": phase_token_forward_ref, "ring16": phase_ring16,
+         "parallel": phase_parallel}
 
 
 def main(argv=None) -> int:

@@ -203,7 +203,9 @@ class Context:
                 out.append(g)
         return tuple(out)
 
-    def _bc(self, nd, alpha, fold, gq, conv, q_out) -> BCTables:
+    def bc_tables(self, nd, alpha, fold, gq, conv, q_out) -> BCTables:
+        """BCTables for nd digit groups of alpha source rows each (pad rows:
+        fold 0, prime 1, conv 0) converting to the primes q_out."""
         i32 = lambda a: self.tensor(np.asarray(a, np.int64).astype(np.int32))
         u32 = lambda a: self.tensor(np.ascontiguousarray(
             np.asarray(a).astype(np.uint32)).view(np.int32))
@@ -248,13 +250,13 @@ class Context:
             conv_rows += [[0] * ntgt] * pad
             groups.append(g)
             dig_limbs.append(tuple(-1 if i in g else i for i in tgt_idx))
-        bc = self._bc(len(groups), self.alpha, fold_rows, gq_rows,
+        bc = self.bc_tables(len(groups), self.alpha, fold_rows, gq_rows,
                       conv_rows, tgt_primes)
         # mod-down tables: P -> active q basis
         qs_act = [int(q) for q in self.qs[:nl]]
         pfold = [pow((P // pt) % pt, pt - 2, pt) for pt in self.ps]
         pconv = [[(P // pt) % q for q in qs_act] for pt in self.ps]
-        md = self._bc(1, self.k_sp, pfold, list(self.ps), pconv, qs_act)
+        md = self.bc_tables(1, self.k_sp, pfold, list(self.ps), pconv, qs_act)
         mdq40 = np.asarray([(((1 << 41) // pt) + 1) >> 1 for pt in self.ps],
                            np.int64).reshape(-1, 1)
         assert int(mdq40.max()) < (1 << 16), \

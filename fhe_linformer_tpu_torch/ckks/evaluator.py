@@ -7,8 +7,10 @@ its jitted cores compute (each returns canonical residues, so results are
 bit-identical given the same inputs).  Running scale lives on the host
 wrapper.  Heavy ops process at most `heavy_chunk` ciphertexts at a time
 (the fused Chebyshev nodes `fused_chunk`) to bound the key switch's
-intermediates (~12x the ciphertext volume).  Not ported: the sharded key
-switch.
+intermediates (~12x the ciphertext volume).  With `enable_sharded_ks`,
+an unbatched Galois key switch or rotation combo runs limb-sharded over a
+mesh (`parallel/ksprod.py`); with `enable_dp`, each heavy batched op runs
+its share of the batch on this rank of a dp mesh (`parallel/circuit.py`).
 
 Every key switch funnels through `_galois_many` or `_relin`: inverse NTT
 of the input (kernel K2), digit decomposition by fused base conversion
@@ -38,6 +40,16 @@ def _nct(ct: Ciphertext) -> int:
     return int(np.prod(ct.c0.shape[:-2], dtype=np.int64))
 
 
+def _run_chunks(core, flat, chunk: int):
+    """core over consecutive chunks of at most `chunk` rows of the
+    flattened operands, the outputs concatenated."""
+    n = flat[0].shape[0]
+    if n <= chunk:
+        return core(*flat)
+    outs = [core(*(f[s: s + chunk] for f in flat)) for s in range(0, n, chunk)]
+    return tuple(torch.cat(o) for o in zip(*outs))
+
+
 class Evaluator:
     """`heavy_chunk`: ciphertexts per key-switching call; `fused_chunk`:
     the same for the fused Chebyshev nodes (None: heavy_chunk)."""
@@ -55,6 +67,9 @@ class Evaluator:
         self._sk_host: torch.Tensor | None = None
         self._baby_stack = None
         self._slotdec_cache: dict = {}
+        self._shard_mesh = None
+        self._shard_ks: dict = {}
+        self._dp = None
 
     def prefetch_host_sk(self) -> None:
         """Keep a host copy of the secret key's eval-domain residues, so
@@ -364,10 +379,23 @@ class Evaluator:
                   rescale: bool = True) -> Ciphertext:
         _COUNTS.count("ctpt_mult", _nct(ct))
         pt = self._pt_to(pt, ct.nl)
-        q = self.ctx.mod(self.ctx.limb_idx(ct.nl))
-        out = ct.with_data(mulmod(ct.c0, pt.data, q), mulmod(ct.c1, pt.data, q),
-                           scale=ct.scale * pt.scale)
-        return self.rescale(out) if rescale else out
+        nl = ct.nl
+        q = self.ctx.mod(self.ctx.limb_idx(nl))
+        plan = self.ctx.rescale_tables(nl) if rescale else None
+        p = pt.data
+
+        def core(a0, a1, b=p):
+            c0, c1 = mulmod(a0, b, q), mulmod(a1, b, q)
+            return (c0, c1) if plan is None else \
+                _rescale_body(self.ctx, c0, c1, plan)
+        # a batched plaintext rides the batch
+        c0, c1 = self._whole(core, (ct.c0, ct.c1) + ((p,) if p.dim() > 2
+                                                     else ()))
+        scale = ct.scale * pt.scale
+        if plan is None:
+            return ct.with_data(c0, c1, scale=scale)
+        _COUNTS.count("rescale", int(np.prod(c0.shape[:-2], dtype=np.int64)))
+        return Ciphertext(c0, c1, nl - 1, scale / float(self.ctx.qs[nl - 1]))
 
     def mul_scalar_int(self, ct: Ciphertext, k: int) -> Ciphertext:
         """Multiply by a small integer (scale unchanged, message *= k)."""
@@ -391,25 +419,62 @@ class Evaluator:
         nl = ct.nl
         assert nl >= 2, "no scaling limb left to drop"
         _COUNTS.count("rescale", _nct(ct))
-        c0, c1 = _rescale_body(self.ctx, ct.c0, ct.c1,
-                               self.ctx.rescale_tables(nl))
+        plan = self.ctx.rescale_tables(nl)
+        c0, c1 = self._whole(
+            lambda a0, a1: _rescale_body(self.ctx, a0, a1, plan),
+            (ct.c0, ct.c1))
         return Ciphertext(c0, c1, nl - 1, ct.scale / float(self.ctx.qs[nl - 1]))
 
-    def _batched(self, core, arrays, chunk: int | None = None):
+    def _whole(self, core, arrays):
+        """core(*arrays) on the whole batch at once; under enable_dp, where
+        every rank holds the whole batch, in chunks of heavy_chunk
+        ciphertexts and not split (it runs no key switch), so two ranks on
+        one card hold a chunk's temporaries of a large product or rescale
+        each, not the batch's."""
+        if self._dp is None:
+            return core(*arrays)
+        return self._batched(core, arrays, keyswitches=0, split=False)
+
+    def _batched(self, core, arrays, chunk: int | None = None,
+                 keyswitches: int = 1, split: bool = True):
         """core(*arrays) over chunks of at most `chunk` (heavy_chunk)
         ciphertexts of the broadcast leading batch (operands are broadcast
-        first)."""
+        first).  Under enable_dp (and `split`) a batch that gives every dp
+        rank at least one ciphertext is cut into one contiguous block per
+        rank: this rank runs its block and the blocks are all-gathered, so
+        every rank returns the whole result (each ciphertext's ops are
+        independent of the others', so it equals the single-process result
+        bit for bit).  The `keyswitches` per ciphertext that other ranks ran
+        are taken out of this process's `keyswitch` count."""
         chunk = chunk or self.heavy_chunk
         shape = torch.broadcast_shapes(*(a.shape[:-2] for a in arrays))
         count = int(np.prod(shape, dtype=np.int64))
-        if count <= chunk and len(shape) <= 1:
-            return core(*arrays)
-        flat = [a.expand(shape + a.shape[-2:]).reshape((count,) + a.shape[-2:])
-                for a in arrays]
-        outs = [core(*(f[s: s + chunk] for f in flat))
-                for s in range(0, count, chunk)]
-        return tuple(torch.cat(o).reshape(shape + o[0].shape[-2:])
-                     for o in zip(*outs))
+        dp = self._dp
+        per = count if dp is None else -(-count // dp.size)
+        if dp is None or not split or (dp.size - 1) * per >= count:
+            if count <= chunk and len(shape) <= 1:
+                return core(*arrays)
+            flat = [a.expand(shape + a.shape[-2:])
+                    .reshape((count,) + a.shape[-2:]) for a in arrays]
+            return tuple(o.reshape(shape + o.shape[-2:])
+                         for o in _run_chunks(core, flat, chunk))
+        lo, hi = dp.rank * per, min((dp.rank + 1) * per, count)
+        _COUNTS.count("keyswitch", -keyswitches * (count - (hi - lo)))
+        flat = [a.expand(shape + a.shape[-2:])
+                .reshape((count,) + a.shape[-2:])[lo:hi] for a in arrays]
+        outs = torch.stack(_run_chunks(core, flat, chunk))    # (k, hi-lo, ...)
+        if hi - lo < per:
+            outs = torch.cat([outs, outs.new_zeros(
+                (outs.shape[0], per - (hi - lo)) + outs.shape[2:])], 1)
+        full = dp.all_gather(outs, 1)[:, :count]
+        return tuple(o.reshape(shape + o.shape[-2:]) for o in full)
+
+    def enable_dp(self, mesh) -> None:
+        """Run the heavy batched ops (ct x ct products, the Chebyshev nodes,
+        Galois key switches, accumulated rotations) split over `mesh`'s dp
+        axis (None: off).  Every rank must run the same ops on the same
+        (replicated) ciphertexts."""
+        self._dp = None if mesh is None else mesh.comms["dp"]
 
     def mul(self, a: Ciphertext, b: Ciphertext,
             rescale: bool = True) -> Ciphertext:
@@ -553,6 +618,9 @@ class Evaluator:
     def _galois(self, ct: Ciphertext, perm, key: KSKey) -> Ciphertext:
         _COUNTS.count("rotation", _nct(ct))
         _COUNTS.count("keyswitch", _nct(ct))
+        out = self._galois_sharded(ct, perm, key)
+        if out is not None:
+            return out
         ks = self.ctx.ks_tables(ct.nl)
         c0, c1 = self._batched(
             lambda a0, a1: _galois_core(self.ctx, a0, a1, perm, key, ks),
@@ -609,7 +677,7 @@ class Evaluator:
                 o0, o1 = _galois_core(ctx, c0, c1, perm, key, ks)
                 c0, c1 = addmod(c0, o0, q), addmod(c1, o1, q)
             return c0, c1
-        c0, c1 = self._batched(core, (ct.c0, ct.c1))
+        c0, c1 = self._batched(core, (ct.c0, ct.c1), keyswitches=len(live))
         return ct.with_data(c0, c1)
 
     def multi_rotate_stack(self, ct: Ciphertext, shifts) -> Ciphertext:
@@ -685,9 +753,85 @@ class Evaluator:
         items: [(shift, plaintext)], the plaintexts CoeffPlaintexts or
         encode(..., specials=True) eval plaintexts at a common scale.
         Returns the un-rescaled sum at scale ct.scale * pt.scale."""
+        out = self._combo_sharded(ct, items)
+        if out is not None:
+            return out
         ks = self.ctx.ks_tables(ct.nl)
         return self.combo_from_decomp(ct, _hoist_decompose(self.ctx, ct.c1, ks),
                                       items, ks)
+
+    # ------------------------------------------------------------------
+    # the limb-sharded key switch (parallel/ksprod.py)
+    # ------------------------------------------------------------------
+
+    def enable_sharded_ks(self, mesh) -> None:
+        """Route Galois key switches and rotation combos through the
+        limb-sharded key switch over `mesh`'s limb axis (None: off).  Every
+        rank of the limb axis must run the same ops on the same (replicated)
+        ciphertexts.  The JAX package's conditions apply: an unbatched
+        ciphertext, an extended basis (nl + k) that divides the limb axis,
+        full-basis keys, coefficient plaintexts and no identity term; any
+        other switch runs on this process alone, as there."""
+        self._shard_mesh = mesh
+        self._shard_ks = {}
+
+    def _rank_ks(self, nl: int):
+        from ..parallel.ksprod import build_sharded_ks, rank_tables
+        if nl not in self._shard_ks:
+            mesh = self._shard_mesh
+            self._shard_ks[nl] = rank_tables(
+                self.ctx, build_sharded_ks(self.ctx, nl, mesh.shape["limb"]),
+                mesh.coords["limb"])
+        return self._shard_ks[nl]
+
+    def _shardable(self, ct: Ciphertext) -> bool:
+        return self._shard_mesh is not None and ct.c0.dim() == 2 and \
+            (ct.nl + self.ctx.k_sp) % self._shard_mesh.shape["limb"] == 0
+
+    def _galois_sharded(self, ct: Ciphertext, perm, key: KSKey):
+        """One unbatched Galois key switch on the limb mesh, or None when
+        it cannot ride it."""
+        if not self._shardable(ct) or key.max_nl is not None:
+            return None
+        from ..parallel.ksprod import ext_block, gather_rows, sharded_galois
+        rk = self._rank_ks(ct.nl)
+        comm = self._shard_mesh.comms["limb"]
+        _COUNTS.count("keyswitch_sharded")
+        o0, o1 = sharded_galois(
+            self.ctx, rk, comm, ext_block(rk, ct.c0), ext_block(rk, ct.c1),
+            perm, key.b.index_select(1, rk.key_rows),
+            key.a.index_select(1, rk.key_rows))
+        return gather_rows(rk, comm, o0, o1, ct.scale)
+
+    def _combo_sharded(self, ct: Ciphertext, items):
+        """rotate_combo on the limb mesh, or None when the ciphertext or the
+        items cannot ride it (coefficient plaintexts at one scale, no
+        identity term, full-basis keys)."""
+        if not self._shardable(ct) or self.keys is None:
+            return None
+        slots = self.ctx.cfg.slots
+        if not all(isinstance(p, CoeffPlaintext) and r % slots != 0
+                   for r, p in items):
+            return None
+        keys = [self._rot_key(r) for r, _ in items]
+        if any(k.max_nl is not None for k in keys):
+            return None
+        from ..parallel.ksprod import ext_block, gather_rows, sharded_combo
+        scale = items[0][1].scale
+        for _, p in items:
+            assert abs(p.scale / scale - 1.0) < 1e-12
+        _COUNTS.count("combo_rot", len(items))
+        _COUNTS.count("keyswitch")
+        _COUNTS.count("keyswitch_sharded")
+        rk = self._rank_ks(ct.nl)
+        comm = self._shard_mesh.comms["limb"]
+        o0, o1 = sharded_combo(
+            self.ctx, rk, comm, ext_block(rk, ct.c0), ext_block(rk, ct.c1),
+            [self._perm(r) for r, _ in items],
+            [k.b.index_select(1, rk.key_rows) for k in keys],
+            [k.a.index_select(1, rk.key_rows) for k in keys],
+            torch.stack([p.coeffs for _, p in items]))
+        return gather_rows(rk, comm, o0, o1, ct.scale * scale)
 
     def combo_from_decomp(self, ct: Ciphertext, y_e, items,
                           ks: LevelKS) -> Ciphertext:
@@ -919,11 +1063,23 @@ def _md_overflow(w, mdq40):
     """round(sum_t w_t / p_t), the CRT overflow of the fast base conversion
     P -> Q, in the JAX package's exact fixed point: integer 16-bit partial
     sums, combined in float32 at the end and rounded half to even."""
+    return _md_round(*_md_partials(w, mdq40))
+
+
+def _md_partials(w, mdq40):
+    """The exact integer partial sums (al, ahbb) of `_md_overflow` over the
+    rows of w; sums over disjoint row sets add (the limb-sharded mod-down
+    all-reduces them before `_md_round`)."""
     w = w.long()
     a = (w & 0xFFFF) * mdq40
     b = (w >> 16) * mdq40
-    al = (a & 0xFFFF).sum(-2, keepdim=True)
-    ahbb = ((a >> 16) + b).sum(-2, keepdim=True)
+    return ((a & 0xFFFF).sum(-2, keepdim=True),
+            ((a >> 16) + b).sum(-2, keepdim=True))
+
+
+def _md_round(al, ahbb):
+    """The single float32 combine of the partial sums, rounded half to
+    even."""
     s = al.float() * (2.0 ** -40) + ahbb.float() * (2.0 ** -24)
     return torch.round(s).int()
 

@@ -4,7 +4,9 @@ Every tensor lives matrix-packed: one ciphertext carries nb = slots/d
 tokens (slot[d*t + i] = X[t, i]).  Q/K/V/WO/FFN projections are single
 BSGS block-matmuls on the double-hoisted rotation combo; the FFN's block
 outputs are the GELU containers.  Sequences longer than nb run as chunks
-of nb tokens, looped one chunk at a time through the attention.  With a
+of nb tokens, looped one chunk at a time through the attention, or, with
+`batch_chunks=True`, as one (C, k, ...) batched score product and value
+mix (the dp-sharded shape, `parallel/circuit_packed.py`).  With a
 Bootstrapper (`boot=`), refreshes fire where the levels run short: mid-exp
 in the attention, before the GELU, and at the pooler's entry (one
 ciphertext per chunk each, so 3 per request at 128 tokens).
@@ -18,6 +20,7 @@ Layout contracts (d = 128, nb = slots/d):
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from ..ckks.ciphertext import Ciphertext
 from ..ckks.evaluator import Evaluator
@@ -27,10 +30,27 @@ from .circuit import CircuitParams, _stack
 from .golden import LinformerWeights, client_preprocess
 
 
+def _mul_bc(ev: Evaluator, a: Ciphertext, b: Ciphertext) -> Ciphertext:
+    """ct x ct with batch broadcasting: levels aligned, then both operands
+    expanded to the common batch shape (so the op counts are the
+    broadcast batch's, as in the JAX package)."""
+    nl = min(a.nl, b.nl)
+    a, b = ev.drop_to(a, nl), ev.drop_to(b, nl)
+    shape = torch.broadcast_shapes(a.c0.shape, b.c0.shape)
+    a = a.with_data(a.c0.expand(shape), a.c1.expand(shape))
+    b = b.with_data(b.c0.expand(shape), b.c1.expand(shape))
+    return ev.mul(a, b)
+
+
 class PackedLinformer:
+    """`batch_chunks`: attention's per-chunk score and value-mix products
+    as ONE (C, k, ...) batched op instead of a loop over chunks, bit-exact
+    with the loop; it holds C * k_lin ciphertext intermediates at once."""
+
     def __init__(self, ev: Evaluator, w: LinformerWeights,
                  params: CircuitParams | None = None, d: int | None = None,
-                 bs: int = 16, chunk_tokens: int | None = None):
+                 bs: int = 16, batch_chunks: bool = False,
+                 chunk_tokens: int | None = None):
         self.ev = ev
         self.w = w
         self.p = params or CircuitParams()
@@ -38,6 +58,7 @@ class PackedLinformer:
         self.bops = BlockOps(ev, self.d, bs=bs, chunk_tokens=chunk_tokens)
         self.ops = self.bops.ops
         self.g = Gadgets(ev)
+        self.batch_chunks = batch_chunks
 
     # -- client-side input preparation ---------------------------------
 
@@ -68,16 +89,28 @@ class PackedLinformer:
         C = x_ct.c0.shape[0]
         mval = p.r / 8.0 if p.exp_pow8 else p.r
         mask = ops.mask_mod_n(d, value=mval)
-        scs = []
-        for c in range(C):
-            qc = Q.with_data(Q.c0[c], Q.c1[c])
-            prod = ev.mul(K_rep, qc)                       # (k, ...)
-            sc = ops.rotsum(prod, d, 1)                    # dot at lane 0
+        if self.batch_chunks and C > 1:
+            # one (C, k, ...) product, the chunk axis first
+            prod = _mul_bc(ev, K_rep.with_data(K_rep.c0[None], K_rep.c1[None]),
+                           Q.with_data(Q.c0[:, None], Q.c1[:, None]))
+            sc = ops.rotsum(prod, d, 1)
             sc = ev.mul_plain(sc, ev.encode_cached(
                 ("score_mask", d, mval), mask, nl=sc.nl))
-            scs.append(ops.interleave_batch(sc, stride=1))
-        scores = _stack(scs)                               # (C, ...)
-        del Q, prod, sc, scs
+            # interleave merges axis 0: the k axis first
+            scores = ops.interleave_batch(sc.with_data(
+                sc.c0.movedim(1, 0), sc.c1.movedim(1, 0)), stride=1)
+            del Q, prod, sc
+        else:
+            scs = []
+            for c in range(C):
+                qc = Q.with_data(Q.c0[c], Q.c1[c])
+                prod = ev.mul(K_rep, qc)                   # (k, ...)
+                sc = ops.rotsum(prod, d, 1)                # dot at lane 0
+                sc = ev.mul_plain(sc, ev.encode_cached(
+                    ("score_mask", d, mval), mask, nl=sc.nl))
+                scs.append(ops.interleave_batch(sc, stride=1))
+            scores = _stack(scs)                           # (C, ...)
+            del Q, prod, sc, scs
 
         # depth after the Taylor: power raise (3 when pow8) + inverse +
         # the mix/WO/affine tail (~7): the mid-exp refresh's threshold
@@ -101,13 +134,19 @@ class PackedLinformer:
         del scores, inv, ssum
 
         # value mix: out[t, i] = sum_u attn[t, u] v[u, i]
-        outs = []
-        for c in range(C):
-            ac = attn.with_data(attn.c0[c], attn.c1[c])
-            a_sp = bops.lane_rows_to_blocks(ac, k_lin)     # (k, ...)
-            outs.append(bops.reduce_batch(ev.mul(a_sp, V_rep)))
-        mixed = _stack(outs)                               # (C, ...)
-        del attn, outs, a_sp, V_rep, K_rep
+        if self.batch_chunks and C > 1:
+            a_sp = bops.lane_rows_to_blocks(attn, k_lin)   # (k, C, ...)
+            mixed = bops.reduce_batch(_mul_bc(ev, a_sp, V_rep.with_data(
+                V_rep.c0[:, None], V_rep.c1[:, None])))    # (C, ...)
+            del attn, a_sp, V_rep, K_rep
+        else:
+            outs = []
+            for c in range(C):
+                ac = attn.with_data(attn.c0[c], attn.c1[c])
+                a_sp = bops.lane_rows_to_blocks(ac, k_lin)  # (k, ...)
+                outs.append(bops.reduce_batch(ev.mul(a_sp, V_rep)))
+            mixed = _stack(outs)                           # (C, ...)
+            del attn, outs, a_sp, V_rep, K_rep
 
         out = bops.matmul(mixed, w.WO, "WO", bias=w.BO)
         x_adj, out = ev.match(x_ct, out)

@@ -5,6 +5,8 @@
 bootstrap refreshes (`bootstrap`).  `KERNEL_LAUNCHES` counts each CUDA kernel's
 launches: a wrapper adds one where it launches its kernel and nowhere else,
 so a run can show that its main path went through the kernels.
+`COLLECTIVE_BYTES` counts the bytes each rank hands to the collectives of
+`parallel/comm.py`, by collective.
 """
 
 from __future__ import annotations
@@ -29,6 +31,11 @@ GLOBAL_TIMERS = Timers()
 # kernel name -> launches; the names are the ones chip_smoke.py reports
 KERNEL_LAUNCHES: dict[str, int] = {"ntt_fwd": 0, "ntt_inv": 0,
                                    "base_convert": 0}
+
+
+# collective -> bytes of the tensors this process handed to it
+COLLECTIVE_BYTES: dict[str, int] = {"all_reduce": 0, "reduce_scatter": 0,
+                                    "all_gather": 0}
 
 
 def reset_launches() -> None:
