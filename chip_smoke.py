@@ -545,7 +545,8 @@ def phase_keyswitch():
     key switch at N = 2^15, 24 limbs, dnum 3, batch 4, timed here behind
     the device sleep; then rotate_hoisted on the same ciphertext for a few
     shifts, held bit for bit against the port's CPU path, with its ms per
-    shift beside rotate's."""
+    shift beside rotate's; then the reduced-basis switch
+    (`_reduced_keyswitch`) and the chunked batch ops (`_chunked_ops`)."""
     import torch
     from fhe_linformer_tpu_torch.bench import keyswitch_case
     from fhe_linformer_tpu_torch.ckks.context import Context
@@ -583,6 +584,51 @@ def phase_keyswitch():
           "rotate_hoisted_equals_cpu": True, "cpu_path_s": cpu_s})
     del switch, ev, ct, cpu
     _reduced_keyswitch()
+    _chunked_ops()
+
+
+def _chunked_ops(nl=16, batch=128):
+    """A plaintext product with its rescale, and a rescale, on a batch of
+    128 ciphertexts (config 5's FFN batch) at N = 2^15 on preset
+    multi-layer's chain: in chunks of heavy_chunk ciphertexts, as the
+    evaluator runs them, against one call over the whole batch
+    (heavy_chunk = batch), timed in turns (whole, chunked, chunked, whole),
+    the outputs held equal, each one's peak memory above its inputs."""
+    import torch
+    from fhe_linformer_tpu_torch.ckks.context import Context
+    from fhe_linformer_tpu_torch.ckks.evaluator import Evaluator
+    from fhe_linformer_tpu_torch.ckks.keys import generate_keys
+    from fhe_linformer_tpu_torch.config import get
+    ctx = Context(get("multi-layer").ckks)
+    ev = Evaluator(ctx, generate_keys(ctx))
+    chunk = ev.heavy_chunk
+    rng = np.random.default_rng(0)
+    ct = ev.encrypt(rng.uniform(-1, 1, (batch, ctx.cfg.slots)), nl=nl,
+                    batch=True)
+    pt = ev.encode(rng.uniform(-1, 1, ctx.cfg.slots), nl=nl)
+    line = {"phase": "chunked_ops", "preset": "multi-layer",
+            "n": ctx.cfg.n, "limbs": nl, "batch": batch, "chunk": chunk}
+    for name, op in (("mul_plain", lambda: ev.mul_plain(ct, pt)),
+                     ("rescale", lambda: ev.rescale(ct))):
+        ms, peak_gb, outs = {"whole": [], "chunked": []}, {}, {}
+        for mode in ("whole", "chunked", "chunked", "whole"):
+            ev.heavy_chunk = batch if mode == "whole" else chunk
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            outs[mode] = op()
+            torch.cuda.synchronize()
+            peak_gb[mode] = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+            ms[mode].append(cuda_ms(op, reps=10))
+        a, b = outs["whole"], outs["chunked"]
+        if not (torch.equal(a.c0, b.c0) and torch.equal(a.c1, b.c1)):
+            raise AssertionError(f"{name} in chunks differs from one call")
+        line[name] = {"ms": ms, "peak_gb": peak_gb,
+                      "chunked_over_whole_ms": float(np.mean(ms["chunked"])
+                                                     / np.mean(ms["whole"]))}
+        del outs, a, b
+    ev.heavy_chunk = chunk
+    emit(line)
 
 
 def _reduced_max_nl(preset) -> int:
@@ -1636,6 +1682,19 @@ def _host_logits(circ, out, packed):
     return vals[:ncls] if packed else vals[: ncls * circ.ops.d: circ.ops.d]
 
 
+def _add_rank_launches(launches, res, what):
+    """Add each rank's launches on the sharded or dp path alone (the ranks
+    count around those calls only) to `launches`; fails if a rank launched
+    some kernel no time."""
+    for rank, r in enumerate(res):
+        missing = [k for k in KERNELS if r["launches"][k] <= 0]
+        if missing:
+            raise AssertionError(f"{what}: rank {rank} never launched "
+                                 f"{missing}")
+        for k in KERNELS:
+            launches[k] += r["launches"][k]
+
+
 def _parallel_keyswitch(launches):
     """Step 1: the limb-sharded Galois switch and combo (shifts 1, 2, 3) at
     ring 2^15 on 4 ranks, through Evaluator.rotate / rotate_combo, and the
@@ -1671,8 +1730,7 @@ def _parallel_keyswitch(launches):
         if not np.array_equal(a["z"], want[b0:b1, r0:r1]):
             raise AssertionError("the attention step differs from the plain "
                                  f"NTT at batch {b0}:{b1}, rows {r0}:{r1}")
-        for k in KERNELS:
-            launches[k] += r["launches"][k]
+    _add_rank_launches(launches, res, "the sharded key switch")
     sharded = [r["keyswitch_sharded"] for r in res]
     if min(sharded) <= 0:
         raise AssertionError(f"keyswitch_sharded per rank {sharded}")
@@ -1680,6 +1738,7 @@ def _parallel_keyswitch(launches):
             "ranks": PARALLEL_RANKS, "rows_per_rank": 8,
             "transport": "gloo", "staging": "host", "launch_wall_s": wall,
             "keyswitch_sharded_per_rank": sharded,
+            "launches_per_rank": [r["launches"] for r in res],
             "equals_single_process": True, "attention_step_exact": True}
     for op in ("rotate", "combo"):
         timed = [r[op][1] for r in res]
@@ -1719,8 +1778,6 @@ def phase_parallel():
     from fhe_linformer_tpu_torch.parallel.circuit import dryrun_circuit
     from fhe_linformer_tpu_torch.parallel.dryrun import dryrun_worker
     from fhe_linformer_tpu_torch.parallel.mesh import launch
-    from fhe_linformer_tpu_torch.utils.timing import (KERNEL_LAUNCHES,
-                                                      reset_launches)
     cuda_build.build()
     gc.collect()
     torch.cuda.empty_cache()
@@ -1729,7 +1786,8 @@ def phase_parallel():
           "total_gb": total / 2 ** 30, "transport": "gloo",
           "staging": "host", "note": "ranks share one card: exactness, "
           "shapes, memory and bytes, no multi-card speed"})
-    reset_launches()
+    # the path's launches are the ranks' own, counted around the sharded
+    # and dp calls alone; this process's references are not counted
     launches = {k: 0 for k in KERNELS}
     _parallel_keyswitch(launches)
 
@@ -1815,8 +1873,7 @@ def phase_parallel():
         else:
             os.environ["PYTORCH_CUDA_ALLOC_CONF"] = alloc_conf
     wall = time.perf_counter() - t
-    for k in KERNELS:
-        launches[k] += KERNEL_LAUNCHES[k] + sum(r["launches"][k] for r in res)
+    _add_rank_launches(launches, res, "the dp forwards")
     for i, ref in enumerate(refs):
         ranks = [r["forwards"][i] for r in res]
         holders = [r for r in ranks if r["out"] is not None]
@@ -1839,6 +1896,7 @@ def phase_parallel():
               "rank_s": [r["s"] for r in ranks],
               "single_keyswitches": ref["keyswitch"],
               "rank_keyswitches": [r["keyswitch"] for r in ranks],
+              "rank_launches": [r["launches"] for r in ranks],
               "collective_bytes": [r["collective_bytes"] for r in ranks],
               "rank_max_memory_allocated_gb":
                   [r["max_memory_allocated_gb"] for r in ranks],

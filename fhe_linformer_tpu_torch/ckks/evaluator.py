@@ -5,12 +5,14 @@ the hybrid key switch, on one device.
 The counterpart of the JAX package's `ckks/evaluator.py`, computing what
 its jitted cores compute (each returns canonical residues, so results are
 bit-identical given the same inputs).  Running scale lives on the host
-wrapper.  Heavy ops process at most `heavy_chunk` ciphertexts at a time
-(the fused Chebyshev nodes `fused_chunk`) to bound the key switch's
-intermediates (~12x the ciphertext volume).  With `enable_sharded_ks`,
-an unbatched Galois key switch or rotation combo runs limb-sharded over a
-mesh (`parallel/ksprod.py`); with `enable_dp`, each heavy batched op runs
-its share of the batch on this rank of a dp mesh (`parallel/circuit.py`).
+wrapper.  Batched ops (key switches, products, rescales) process at most
+`heavy_chunk` ciphertexts at a time (the fused Chebyshev nodes
+`fused_chunk`) to bound their intermediates (the key switch's ~12x the
+ciphertext volume).  With `enable_sharded_ks`, an unbatched Galois key
+switch or rotation combo runs limb-sharded over a mesh
+(`parallel/ksprod.py`); with `enable_dp`, each batched key-switching op
+runs its share of the batch on this rank of a dp mesh
+(`parallel/circuit.py`).
 
 Every key switch funnels through `_galois_many` or `_relin`: inverse NTT
 of the input (kernel K2), digit decomposition by fused base conversion
@@ -389,8 +391,9 @@ class Evaluator:
             return (c0, c1) if plan is None else \
                 _rescale_body(self.ctx, c0, c1, plan)
         # a batched plaintext rides the batch
-        c0, c1 = self._whole(core, (ct.c0, ct.c1) + ((p,) if p.dim() > 2
-                                                     else ()))
+        c0, c1 = self._batched(core, (ct.c0, ct.c1) + ((p,) if p.dim() > 2
+                                                       else ()),
+                               keyswitches=0)
         scale = ct.scale * pt.scale
         if plan is None:
             return ct.with_data(c0, c1, scale=scale)
@@ -420,46 +423,42 @@ class Evaluator:
         assert nl >= 2, "no scaling limb left to drop"
         _COUNTS.count("rescale", _nct(ct))
         plan = self.ctx.rescale_tables(nl)
-        c0, c1 = self._whole(
+        c0, c1 = self._batched(
             lambda a0, a1: _rescale_body(self.ctx, a0, a1, plan),
-            (ct.c0, ct.c1))
+            (ct.c0, ct.c1), keyswitches=0)
         return Ciphertext(c0, c1, nl - 1, ct.scale / float(self.ctx.qs[nl - 1]))
 
-    def _whole(self, core, arrays):
-        """core(*arrays) on the whole batch at once; under enable_dp, where
-        every rank holds the whole batch, in chunks of heavy_chunk
-        ciphertexts and not split (it runs no key switch), so two ranks on
-        one card hold a chunk's temporaries of a large product or rescale
-        each, not the batch's."""
-        if self._dp is None:
-            return core(*arrays)
-        return self._batched(core, arrays, keyswitches=0, split=False)
-
     def _batched(self, core, arrays, chunk: int | None = None,
-                 keyswitches: int = 1, split: bool = True):
+                 keyswitches: int = 1):
         """core(*arrays) over chunks of at most `chunk` (heavy_chunk)
         ciphertexts of the broadcast leading batch (operands are broadcast
-        first).  Under enable_dp (and `split`) a batch that gives every dp
-        rank at least one ciphertext is cut into one contiguous block per
-        rank: this rank runs its block and the blocks are all-gathered, so
-        every rank returns the whole result (each ciphertext's ops are
-        independent of the others', so it equals the single-process result
-        bit for bit).  The `keyswitches` per ciphertext that other ranks ran
-        are taken out of this process's `keyswitch` count."""
+        first), so a large batch never holds the whole batch's
+        temporaries.  `keyswitches`: the key switches core runs per
+        ciphertext, counted here for the ciphertexts this process runs.
+        Under enable_dp a key-switching op (keyswitches > 0) whose batch
+        gives every dp rank at least one ciphertext is cut into one
+        contiguous block per rank: this rank runs its block and the blocks
+        are all-gathered, so every rank returns the whole result (each
+        ciphertext's ops are independent of the others', so it equals the
+        single-process result bit for bit).  An op without a key switch
+        runs its chunks on every rank: gathering its output would cost more
+        than computing it."""
         chunk = chunk or self.heavy_chunk
         shape = torch.broadcast_shapes(*(a.shape[:-2] for a in arrays))
         count = int(np.prod(shape, dtype=np.int64))
         dp = self._dp
         per = count if dp is None else -(-count // dp.size)
-        if dp is None or not split or (dp.size - 1) * per >= count:
-            if count <= chunk and len(shape) <= 1:
+        if dp is None or keyswitches == 0 or (dp.size - 1) * per >= count:
+            _COUNTS.count("keyswitch", keyswitches * count)
+            # a key-switching core takes one batch axis, the others any
+            if count <= chunk and (len(shape) <= 1 or keyswitches == 0):
                 return core(*arrays)
             flat = [a.expand(shape + a.shape[-2:])
                     .reshape((count,) + a.shape[-2:]) for a in arrays]
             return tuple(o.reshape(shape + o.shape[-2:])
                          for o in _run_chunks(core, flat, chunk))
         lo, hi = dp.rank * per, min((dp.rank + 1) * per, count)
-        _COUNTS.count("keyswitch", -keyswitches * (count - (hi - lo)))
+        _COUNTS.count("keyswitch", keyswitches * (hi - lo))
         flat = [a.expand(shape + a.shape[-2:])
                 .reshape((count,) + a.shape[-2:])[lo:hi] for a in arrays]
         outs = torch.stack(_run_chunks(core, flat, chunk))    # (k, hi-lo, ...)
@@ -481,7 +480,6 @@ class Evaluator:
         """ct x ct with relinearization."""
         a, b = self._align_mult(a, b)
         _COUNTS.count("ctct_mult", _nct(a))
-        _COUNTS.count("keyswitch", _nct(a))
         ks = self.ctx.ks_tables(a.nl)
         relin = self._require_keys("mul/relin").relin
         c0, c1 = self._batched(
@@ -508,7 +506,6 @@ class Evaluator:
         a, b = self._align_mult(a, b)
         nl = a.nl
         _COUNTS.count("ctct_mult", _nct(a))
-        _COUNTS.count("keyswitch", _nct(a))
         s_prod = a.scale * b.scale
         if wide:
             nl_out = nl - 2
@@ -550,7 +547,6 @@ class Evaluator:
         ctx = self.ctx
         nl = a.nl
         _COUNTS.count("ctct_mult", _nct(a))
-        _COUNTS.count("keyswitch", _nct(a))
         _COUNTS.count("rescale", (2 if wide else 1) * _nct(a))
         ks = ctx.ks_tables(nl)
         relin = self._require_keys("mul/relin").relin
@@ -617,7 +613,6 @@ class Evaluator:
 
     def _galois(self, ct: Ciphertext, perm, key: KSKey) -> Ciphertext:
         _COUNTS.count("rotation", _nct(ct))
-        _COUNTS.count("keyswitch", _nct(ct))
         out = self._galois_sharded(ct, perm, key)
         if out is not None:
             return out
@@ -666,7 +661,6 @@ class Evaluator:
         live = [s for s in shifts if s % ctx.cfg.slots != 0]
         if not live:
             return ct
-        _COUNTS.count("keyswitch", len(live) * _nct(ct))
         _COUNTS.count("rotation", len(live) * _nct(ct))
         steps = [(self._perm(s), self._rot_key(s)) for s in live]
         ks = ctx.ks_tables(ct.nl)
@@ -796,6 +790,7 @@ class Evaluator:
         from ..parallel.ksprod import ext_block, gather_rows, sharded_galois
         rk = self._rank_ks(ct.nl)
         comm = self._shard_mesh.comms["limb"]
+        _COUNTS.count("keyswitch")
         _COUNTS.count("keyswitch_sharded")
         o0, o1 = sharded_galois(
             self.ctx, rk, comm, ext_block(rk, ct.c0), ext_block(rk, ct.c1),

@@ -7,19 +7,20 @@ collectives to XLA's sharding propagation.  The port has none, and the
 tokens mix at several points (the score interleave, the row and token
 wraps and unwraps, the FFN containers, `ef_project`).  So the token batch
 stays whole on every rank and the ops that carry it are split instead:
-under `Evaluator.enable_dp` every heavy batched op (`Evaluator._batched`:
-ct x ct products, the Chebyshev nodes, Galois key switches, accumulated
-rotations) runs one contiguous block of its batch on each rank and
-all-gathers the blocks.  Each ciphertext's ops are independent of the
-others', so the output equals the single-process output bit for bit; each
-rank runs its share of those key switches (its `keyswitch` count falls
-below the single-process one), while plaintext products, hoisted rotation
+under `Evaluator.enable_dp` every batched key-switching op
+(`Evaluator._batched`: ct x ct products, the Chebyshev nodes, Galois key
+switches, accumulated rotations) runs one contiguous block of its batch on
+each rank and all-gathers the blocks.  Each ciphertext's ops are
+independent of the others', so the output equals the single-process
+output bit for bit; each rank runs its share of those key switches (its
+`keyswitch` count falls below the single-process one), while plaintext
+products and rescales (in chunks of `heavy_chunk`), hoisted rotation
 stacks, rotation combos and the bootstraps run whole on every rank.
 
-`forward_worker` is the worker `mesh.launch` runs for both dp forwards
-(this one and `parallel/circuit_packed.py`'s); `dryrun_circuit` builds the
-JAX dry-run's tiny profile (n = 256, d = 8, k_lin = 4, d_ffn = 32, 5
-classes).
+`run_forward` runs one dp rank of either forward (this one and
+`parallel/circuit_packed.py`'s); `parallel/dryrun.py`'s `dryrun_worker`
+calls it under `mesh.launch`.  `dryrun_circuit` builds the JAX dry-run's
+tiny profile (n = 256, d = 8, k_lin = 4, d_ffn = 32, 5 classes).
 """
 
 from __future__ import annotations
@@ -30,7 +31,6 @@ import numpy as np
 import torch
 
 from ..ckks.ciphertext import Ciphertext
-from .mesh import make_mesh
 
 D, KLIN, FFN, NCLS, BS = 8, 4, 32, 5, 4       # the dry-run's model
 
@@ -87,7 +87,7 @@ def dryrun_circuit(S_total: int, degree: int = 13, num_scaling: int = 44,
 
 def dryrun_make(*args, **kw):
     """dryrun_circuit's circuit and no bootstrapper: a `make` for
-    forward_worker."""
+    run_forward."""
     return dryrun_circuit(*args, **kw)[0], None
 
 
@@ -103,14 +103,6 @@ def token_forward_dp(circ, mesh, x, xe, xf, S_total: int, boot=None
                                       boot=boot)
     finally:
         circ.ev.enable_dp(None)
-
-
-def forward_worker(rank, world, make, make_args, inputs, S_total: int,
-                   packed: bool) -> dict:
-    """One dp rank of a forward for `mesh.launch`: `run_forward` on a
-    (world x 1) mesh."""
-    return run_forward(make_mesh(dp=world), make, make_args, inputs,
-                       S_total, packed)
 
 
 def run_forward(mesh, make, make_args, inputs, S_total: int,

@@ -17,7 +17,9 @@ dry-run's sizes, as one worker for `mesh.launch`.
     turn; on a card the memory each leaves behind is released before the
     next.
 
-The result also carries the rank's kernel launches over the whole worker.
+The result also carries the rank's kernel launches on the sharded and dp
+paths alone: the attention step, the sharded switches (not their
+single-process references or the key generation) and the forwards.
 
 The caller holds the results against its references (the JAX package in
 the tests, the single-process path on the card in `chip_smoke.py`).
@@ -36,9 +38,10 @@ from .sharded import make_attention_step
 
 
 def dryrun_worker(rank, world, spec: dict) -> dict:
-    from ..utils.timing import GLOBAL_TIMERS, KERNEL_LAUNCHES
+    from ..utils.timing import GLOBAL_TIMERS, KERNEL_LAUNCHES, launches_into
     device = spec.get("device")
-    out = {}
+    launches = {k: 0 for k in KERNEL_LAUNCHES}
+    out = {"launches": launches}
     if "attention" in spec:
         a = spec["attention"]
         mesh = make_mesh(a["dp"], a["limb"])
@@ -46,7 +49,8 @@ def dryrun_worker(rank, world, spec: dict) -> dict:
         bs, rs = mesh.ct_block(*a["x"].shape[:2])
         x = torch.as_tensor(a["x"][bs, rs], device=tables.device)
         wt = torch.as_tensor(a["wt"][rs], device=tables.device)
-        z, total = step(x, wt)
+        with launches_into(launches):
+            z, total = step(x, wt)
         out["attention"] = {"batch": (bs.start, bs.stop),
                             "rows": (rs.start, rs.stop), "z": z,
                             "total": total}
@@ -62,6 +66,9 @@ def dryrun_worker(rank, world, spec: dict) -> dict:
             mesh, shifts=shifts, via_evaluator=v, device=device,
             ct=ct_combo, **k) for v in (False, True)]
         out["keyswitch_sharded"] = GLOBAL_TIMERS.counts["keyswitch_sharded"]
+        for check in out["rotate"] + out["combo"]:
+            for name, v in check.pop("launches").items():
+                launches[name] += v
     if "forwards" in spec:
         mesh = make_mesh(world, 1)
         out["forwards"] = []
@@ -69,8 +76,9 @@ def dryrun_worker(rank, world, spec: dict) -> dict:
             out["forwards"].append(run_forward(
                 mesh, f.get("make", dryrun_make), f["make_args"],
                 f["inputs"], f["S_total"], f["packed"]))
+            for name, v in out["forwards"][-1]["launches"].items():
+                launches[name] += v
             gc.collect()
             if torch.cuda.is_available():
                 torch.cuda.empty_cache()
-    out["launches"] = dict(KERNEL_LAUNCHES)
     return out

@@ -296,10 +296,10 @@ def _timed(mesh, ev, fn, reps: int) -> dict:
     """Milliseconds per call of `fn` on this process alone (limb rank 0,
     the other ranks waiting) and on the mesh (every rank, the evaluator
     routed to it), each after one warm-up call and ending in a device
-    synchronise, and the bytes this rank handed to each collective per
-    sharded call."""
+    synchronise, the bytes this rank handed to each collective per
+    sharded call and the kernel launches of the sharded calls."""
     import torch.distributed as dist
-    from ..utils.timing import COLLECTIVE_BYTES
+    from ..utils.timing import COLLECTIVE_BYTES, launches_into
 
     def ms(fn):
         fn()
@@ -311,15 +311,21 @@ def _timed(mesh, ev, fn, reps: int) -> dict:
         if ev.ctx.device.type == "cuda":
             torch.cuda.synchronize()
         return (time.perf_counter() - t) / reps * 1e3
-    out = {"single_ms": ms(fn) if mesh.coords["limb"] == 0 else None}
+    out = {"single_ms": ms(fn) if mesh.coords["limb"] == 0 else None,
+           "launches": {}}
     dist.barrier()
     ev.enable_sharded_ks(mesh)
     b0 = dict(COLLECTIVE_BYTES)
-    out["sharded_ms"] = ms(fn)
+    with launches_into(out["launches"]):
+        out["sharded_ms"] = ms(fn)
     ev.enable_sharded_ks(None)
     out["collective_bytes_per_switch"] = {
         k: (COLLECTIVE_BYTES[k] - b0[k]) / (reps + 1) for k in b0}
     return out
+
+
+def _add(a: dict, b: dict) -> dict:
+    return {k: a.get(k, 0) + b.get(k, 0) for k in a.keys() | b.keys()}
 
 
 def _equal(a: Ciphertext, b: Ciphertext) -> bool:
@@ -336,18 +342,22 @@ def sharded_rotate_parity_check(mesh, n: int = 2048, num_scaling: int = 11,
     through `sharded_galois` or, with via_evaluator, through
     Evaluator.rotate after enable_sharded_ks.  `ct`: (c0, c1, nl, scale)
     arrays to rotate instead of a fresh encryption (the same on every
-    rank).  Returns the output residues and the decrypted slots' max error
-    against the rotated message; with `reps` and via_evaluator, also the
-    single-process and sharded milliseconds per switch and the collective
-    bytes per switch (`_timed`)."""
-    from ..utils.timing import GLOBAL_TIMERS
+    rank).  Returns the output residues, the decrypted slots' max error
+    against the rotated message and the kernel launches of the sharded
+    calls alone (the single-process reference and set-up not counted);
+    with `reps` and via_evaluator, also the single-process and sharded
+    milliseconds per switch and the collective bytes per switch
+    (`_timed`)."""
+    from ..utils.timing import GLOBAL_TIMERS, launches_into
     ctx, ev, _, z, ct = _check_setup(mesh, n, num_scaling, dnum, 77, 5,
                                      (rot,), device, ct)
     want = ev.rotate(ct, rot)
+    launches = {}
     if via_evaluator:
         before = GLOBAL_TIMERS.counts["keyswitch_sharded"]
         ev.enable_sharded_ks(mesh)
-        got = ev.rotate(ct, rot)
+        with launches_into(launches):
+            got = ev.rotate(ct, rot)
         ev.enable_sharded_ks(None)
         if GLOBAL_TIMERS.counts["keyswitch_sharded"] != before + 1:
             raise AssertionError("Evaluator.rotate did not take the sharded "
@@ -357,11 +367,12 @@ def sharded_rotate_parity_check(mesh, n: int = 2048, num_scaling: int = 11,
         rk = rank_tables(ctx, build_sharded_ks(ctx, ct.nl, comm.size),
                          mesh.coords["limb"])
         key = ev._rot_key(rot)
-        o0, o1 = sharded_galois(
-            ctx, rk, comm, ext_block(rk, ct.c0), ext_block(rk, ct.c1),
-            ev._perm(rot), key.b.index_select(1, rk.key_rows),
-            key.a.index_select(1, rk.key_rows))
-        got = gather_rows(rk, comm, o0, o1, ct.scale)
+        with launches_into(launches):
+            o0, o1 = sharded_galois(
+                ctx, rk, comm, ext_block(rk, ct.c0), ext_block(rk, ct.c1),
+                ev._perm(rot), key.b.index_select(1, rk.key_rows),
+                key.a.index_select(1, rk.key_rows))
+            got = gather_rows(rk, comm, o0, o1, ct.scale)
     if not _equal(got, want):
         raise AssertionError("the sharded rotation differs from "
                              "Evaluator.rotate")
@@ -370,6 +381,7 @@ def sharded_rotate_parity_check(mesh, n: int = 2048, num_scaling: int = 11,
            "err": float(np.abs(dec - np.roll(z, -rot)).max())}
     if reps and via_evaluator:
         out.update(_timed(mesh, ev, lambda: ev.rotate(ct, rot), reps))
+    out["launches"] = _add(launches, out.get("launches", {}))
     return out
 
 
@@ -381,8 +393,9 @@ def sharded_combo_parity_check(mesh, n: int = 2048, num_scaling: int = 11,
     against the single-process Evaluator.rotate_combo, bit for bit
     (directly, or through rotate_combo after enable_sharded_ks).  Returns
     the un-rescaled output residues and the rescaled decrypt's max error
-    against the plaintext combination."""
-    from ..utils.timing import GLOBAL_TIMERS
+    against the plaintext combination, and the kernel launches of the
+    sharded calls alone, as the rotate check."""
+    from ..utils.timing import GLOBAL_TIMERS, launches_into
     ctx, ev, rng, z, ct = _check_setup(mesh, n, num_scaling, dnum, 78, 6,
                                        shifts, device, ct)
     items = []
@@ -392,10 +405,12 @@ def sharded_combo_parity_check(mesh, n: int = 2048, num_scaling: int = 11,
         items.append((r, ev.encode_coeff_cached(("combo_par", i), d)))
         want_slots = want_slots + d * np.roll(z, -r)
     want = ev.rotate_combo(ct, items)
+    launches = {}
     if via_evaluator:
         before = GLOBAL_TIMERS.counts["keyswitch_sharded"]
         ev.enable_sharded_ks(mesh)
-        got = ev.rotate_combo(ct, items)
+        with launches_into(launches):
+            got = ev.rotate_combo(ct, items)
         ev.enable_sharded_ks(None)
         if GLOBAL_TIMERS.counts["keyswitch_sharded"] != before + 1:
             raise AssertionError("Evaluator.rotate_combo did not take the "
@@ -405,13 +420,15 @@ def sharded_combo_parity_check(mesh, n: int = 2048, num_scaling: int = 11,
         rk = rank_tables(ctx, build_sharded_ks(ctx, ct.nl, comm.size),
                          mesh.coords["limb"])
         keys = [ev._rot_key(r) for r in shifts]
-        o0, o1 = sharded_combo(
-            ctx, rk, comm, ext_block(rk, ct.c0), ext_block(rk, ct.c1),
-            [ev._perm(r) for r in shifts],
-            [k.b.index_select(1, rk.key_rows) for k in keys],
-            [k.a.index_select(1, rk.key_rows) for k in keys],
-            torch.stack([p.coeffs for _, p in items]))
-        got = gather_rows(rk, comm, o0, o1, ct.scale * items[0][1].scale)
+        with launches_into(launches):
+            o0, o1 = sharded_combo(
+                ctx, rk, comm, ext_block(rk, ct.c0), ext_block(rk, ct.c1),
+                [ev._perm(r) for r in shifts],
+                [k.b.index_select(1, rk.key_rows) for k in keys],
+                [k.a.index_select(1, rk.key_rows) for k in keys],
+                torch.stack([p.coeffs for _, p in items]))
+            got = gather_rows(rk, comm, o0, o1,
+                              ct.scale * items[0][1].scale)
     if not _equal(got, want):
         raise AssertionError("the sharded combo differs from "
                              "Evaluator.rotate_combo")
@@ -421,4 +438,5 @@ def sharded_combo_parity_check(mesh, n: int = 2048, num_scaling: int = 11,
     if reps and via_evaluator:
         out.update(_timed(mesh, ev, lambda: ev.rotate_combo(ct, items),
                           reps))
+    out["launches"] = _add(launches, out.get("launches", {}))
     return out

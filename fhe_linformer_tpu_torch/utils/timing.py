@@ -11,6 +11,7 @@ so a run can show that its main path went through the kernels.
 
 from __future__ import annotations
 
+import contextlib
 from collections import defaultdict
 
 import numpy as np
@@ -41,6 +42,19 @@ COLLECTIVE_BYTES: dict[str, int] = {"all_reduce": 0, "reduce_scatter": 0,
 def reset_launches() -> None:
     for k in KERNEL_LAUNCHES:
         KERNEL_LAUNCHES[k] = 0
+
+
+@contextlib.contextmanager
+def launches_into(acc: dict):
+    """Add the kernel launches made inside the block to `acc` (kernel name
+    -> launches), so a run can count one path's launches apart from the
+    reference work around it."""
+    before = dict(KERNEL_LAUNCHES)
+    try:
+        yield acc
+    finally:
+        for k, v in KERNEL_LAUNCHES.items():
+            acc[k] = acc.get(k, 0) + v - before[k]
 
 
 def approx_error_log2(expected: np.ndarray, actual: np.ndarray) -> float:

@@ -21,9 +21,14 @@ on its results.  While the ranks run, this process builds the references:
     below the single-process count;
   * `PackedLinformer(batch_chunks=True)` against the chunk loop;
   * a failing rank raising in the launcher.
+
+Without a spawn: the evaluator counts each key switch where it runs (a
+dp rank its own block's), and runs plaintext products and rescales in
+chunks equal to one call.
 """
 
 import concurrent.futures
+import types
 
 import numpy as np
 import pytest
@@ -35,6 +40,8 @@ from fhe_linformer_tpu.ckks import generate_keys as jgenerate_keys
 from fhe_linformer_tpu.parallel.ksprod import build_sharded_ks as jbuild
 from fhe_linformer_tpu.reference import NttPlan
 from fhe_linformer_tpu_torch.ckks.context import CKKSConfig, Context
+from fhe_linformer_tpu_torch.ckks.evaluator import Evaluator
+from fhe_linformer_tpu_torch.ckks.keys import generate_keys
 from fhe_linformer_tpu_torch.parallel import ksprod
 from fhe_linformer_tpu_torch.convert import (ciphertext_from_numpy,
                                              ciphertext_to_numpy)
@@ -260,3 +267,64 @@ def test_batch_chunks_equals_loop(run):
 def test_launch_raises_when_a_rank_fails(run):
     assert isinstance(run["bad"], RuntimeError)
     assert "needs 3 ranks" in str(run["bad"])
+
+
+class _HalfDp:
+    """Rank 0 of a 2-rank dp axis whose other rank's block comes back as
+    zeros: enough to count this rank's key switches without a spawn."""
+    size, rank = 2, 0
+
+    def all_gather(self, t, dim):
+        return torch.cat([t, torch.zeros_like(t)], dim)
+
+
+@pytest.fixture(scope="module")
+def small_ev():
+    ctx = Context(CKKSConfig(n=256, scale_bits=26, num_scaling=6, dnum=3),
+                  device="cpu")
+    ev = Evaluator(ctx, generate_keys(ctx, rotations=(1, 2)))
+    rng = np.random.default_rng(2)
+    a = ev.encrypt(rng.uniform(-1, 1, (1, ctx.cfg.slots)), batch=True)
+    b = ev.encrypt(rng.uniform(-1, 1, (4, ctx.cfg.slots)), batch=True)
+    return ev, a, b
+
+
+@pytest.mark.parametrize("dp", [False, True])
+def test_keyswitch_counted_where_it_runs(small_ev, dp):
+    """a (batch 1) broadcasts over b (batch 4) in the product: 4 switches,
+    2 on a dp rank; the accumulated rotations 2 per ciphertext."""
+    ev, a, b = small_ev
+    ev.enable_dp(types.SimpleNamespace(comms={"dp": _HalfDp()})
+                 if dp else None)
+    try:
+        k0 = GLOBAL_TIMERS.counts["keyswitch"]
+        ev.mul(a, b, rescale=False)
+        ev.rotate_accumulate_tree(b, (1, 2))
+        got = GLOBAL_TIMERS.counts["keyswitch"] - k0
+    finally:
+        ev.enable_dp(None)
+    assert got == (2 + 2 * 2 if dp else 4 + 2 * 4)
+
+
+@pytest.mark.parametrize("op", ["mul_plain", "mul_plain_batched_pt",
+                                "rescale"])
+def test_chunked_batch_ops_equal_one_call(small_ev, op):
+    ev, _, _ = small_ev
+    rng = np.random.default_rng(3)
+    slots = ev.ctx.cfg.slots
+    ct = ev.encrypt(rng.uniform(-1, 1, (20, slots)), batch=True)
+    pt = ev.encode(rng.uniform(-1, 1, (20, slots)), batch=True) \
+        if op == "mul_plain_batched_pt" else \
+        ev.encode(rng.uniform(-1, 1, slots))
+    run = ev.rescale if op == "rescale" else (lambda c: ev.mul_plain(c, pt))
+    chunk = ev.heavy_chunk
+    assert chunk < 20
+    try:
+        chunked = run(ct)
+        ev.heavy_chunk = 20
+        whole = run(ct)
+    finally:
+        ev.heavy_chunk = chunk
+    assert (chunked.nl, chunked.scale) == (whole.nl, whole.scale)
+    assert torch.equal(chunked.c0, whole.c0)
+    assert torch.equal(chunked.c1, whole.c1)
