@@ -5,8 +5,9 @@
 
 Phases, each printing one JSON line:
   1. card     - nvidia-smi name, power limit and maximum SM clock,
-                torch/CUDA versions, and the nvcc build of every kernel in
-                fhe_linformer_tpu_torch/csrc (with ptxas registers/spills)
+                torch/CUDA versions, and the build of fhe_linformer_tpu_torch/
+                csrc: every kernel by nvcc (with ptxas registers/spills) and
+                the host codec fastio.cpp by g++, all at once
   2. kernels  - each CUDA kernel against its plain PyTorch version on the
                 card at every shape the main paths send it (K2 through the
                 port's `ntt.inv`, on the limb slices it reads in place; the
@@ -48,6 +49,17 @@ Phases, each printing one JSON line:
                 seconds, error against golden and the host decrypt, argmax;
                 it fails unless they are finite, within 0.05 of the host
                 decrypt and of the same argmax)
+  6b. native  - the host codec (csrc/fastio.cpp through io/native.py) on
+                phase 6's path: its g++ build seconds; the S = 700 request's
+                encoder output (6 chunks) lifted from 3 limbs by the native
+                lifter and by Python ints, equal bit for bit, ms each; that
+                output saved as a checkpoint with native pages, loaded and
+                the request resumed from it, equal bit for bit to the
+                request without the round trip (bytes, save and load
+                seconds), and a copy with one flipped byte raising the CRC
+                error; Gadgets.relu (degree 119) on 4 fresh ciphertexts:
+                seconds, key switches, the host decrypt against cheb_eval of
+                the fit (fails above 0.05) and against max(x, 0)
   7. token_forward - config 5: the per-token circuit (EncryptedLinformer)
                 with two bootstrapped layers on preset multi-layer, the
                 second layer's E/F compression homomorphic, S = 32; keys for
@@ -96,7 +108,7 @@ Phases, each printing one JSON line:
                 (--keys-dir, --cls-only) and golden as subprocesses at
                 preset tiny on the card: exit codes and argmax
  11. the `kernels` line: every kernel with its launches over phases 4-9,
-     7b included (phase 9's ranks send theirs to this process)
+     6b and 7b included (phase 9's ranks send theirs to this process)
 
 It ends with {"ok": true, "device": {...}}.  Any failure raises and exits
 non-zero before that line.  There is no CPU path: the script refuses to run
@@ -221,6 +233,9 @@ def random_residues(shape, qs, gen, device):
 # ---------------------------------------------------------------------------
 # phase 1
 
+# phase card's build of csrc/ (seconds and compiler output per source)
+BUILD_REPORT: dict = {}
+
 
 def phase_card():
     import torch
@@ -233,6 +248,7 @@ def phase_card():
     sms, mhz, int_mul_per_s = card_clock()
     t0 = time.perf_counter()
     report = cuda_build.build()
+    BUILD_REPORT.update(report)
     emit({"phase": "card", "nvidia_smi": card,
           "torch": torch.__version__, "cuda": torch.version.cuda,
           "device": torch.cuda.get_device_name(0), "sms": sms,
@@ -840,11 +856,11 @@ def _stage(log, name, fn, *args, **kw):
     return out
 
 
-def _answer(circ, emb, log, boot=None, input_nl=None):
-    """One request through the circuit's stages (PackedLinformer.forward
-    split where its stages meet): encrypt at input_nl limbs, attention,
-    affine1, ffn_gelu, affine2, pooler_classifier, decrypt.  Returns the
-    logits, the chunk count and the output ciphertext."""
+def _encoder(circ, emb, log, boot=None, input_nl=None):
+    """The encoder layer of one request (PackedLinformer.forward split
+    where its stages meet): encrypt at input_nl limbs, attention, affine1,
+    ffn_gelu, affine2.  Returns the layer's output ciphertext (one per
+    chunk)."""
     import torch
     ev, w = circ.ev, circ.w
 
@@ -859,13 +875,20 @@ def _answer(circ, emb, log, boot=None, input_nl=None):
                boot=boot)
     a = _stage(log, "affine1", circ.affine, a, w.a1, w.b1, w.c1, S_total)
     y = _stage(log, "ffn_gelu", circ.ffn, a, boot=boot)
-    r = _stage(log, "affine2", affine2, a, y, S_total)
+    return _stage(log, "affine2", affine2, a, y, S_total)
+
+
+def _answer(circ, emb, log, boot=None, input_nl=None):
+    """One request: the encoder layer (_encoder), pooler_classifier,
+    decrypt.  Returns the logits, the chunk count and the output
+    ciphertext."""
+    r = _encoder(circ, emb, log, boot, input_nl)
     out = _stage(log, "pooler_classifier", circ.pooler_classifier, r,
                  boot=boot)
     t = time.perf_counter()
     logits = circ.decrypt_logits(out)
     log["decrypt"] = {"s": time.perf_counter() - t}
-    return logits, int(x.c0.shape[0]), out
+    return logits, int(r.c0.shape[0]), out
 
 
 def _device_logits(ev, out, want, host, stride=1) -> dict:
@@ -1061,18 +1084,21 @@ def phase_bootstrap():
     return launches
 
 
-def phase_boot_forward(sizes=(128, 700)):
-    """The production path: the bootstrapped packed Linformer with
-    bench_layer.py main_packed's boot settings, answering S = 128 (cold,
-    warm) and S = 700 (warm), then one traced warm S = 128 request.  Fails
-    unless each request matches golden; prints its bootstrapped ciphertexts
-    beside the JAX package's records (3 and 13)."""
-    import torch
+BOOT_FORWARD_SIZES = (128, 700)
+# phase 6's circuit, bootstrapper and requests, held for phase native
+# (which builds its own when phase 6 did not run) and dropped there
+HELD_BOOT_FORWARD: dict = {}
+
+
+def _boot_forward_circuit(sizes=BOOT_FORWARD_SIZES):
+    """Phase 6's production circuit: linformer-boot-w with the circuit's
+    and the bootstrap's rotation keys, the wide bootstrap at scale_boost 2,
+    random weights of seed 3, an embedding per size and its golden logits.
+    Returns (circuit, bootstrapper, set-up info, {S: embedding},
+    {S: logits})."""
     from fhe_linformer_tpu_torch.boot.bootstrap import BootConfig
     from fhe_linformer_tpu_torch.models import golden
     from fhe_linformer_tpu_torch.models.circuit_packed import PackedLinformer
-    from fhe_linformer_tpu_torch.utils.timing import (KERNEL_LAUNCHES,
-                                                      reset_launches)
     ev, booter, info = _boot_setup(BootConfig.wide_production(),
                                    circuit=True)
     w = golden.random_weights(d=128, k_lin=32, d_ffn=512, n_classes=20,
@@ -1082,7 +1108,19 @@ def phase_boot_forward(sizes=(128, 700)):
     params, inters = _calibrated(golden, w, list(embs.values()), degree=119,
                                  tanh_degree=247)
     want = {S: i["logits"] for S, i in zip(sizes, inters)}
-    circ = PackedLinformer(ev, w, params, bs=16)
+    return PackedLinformer(ev, w, params, bs=16), booter, info, embs, want
+
+
+def phase_boot_forward(sizes=BOOT_FORWARD_SIZES):
+    """The production path: the bootstrapped packed Linformer with
+    bench_layer.py main_packed's boot settings, answering S = 128 (cold,
+    warm) and S = 700 (warm), then one traced warm S = 128 request.  Fails
+    unless each request matches golden; prints its bootstrapped ciphertexts
+    beside the JAX package's records (3 and 13)."""
+    import torch
+    from fhe_linformer_tpu_torch.utils.timing import (KERNEL_LAUNCHES,
+                                                      reset_launches)
+    circ, booter, info, embs, want = _boot_forward_circuit(sizes)
     emit({"phase": "boot_forward_setup", **info,
           "scale_boost": booter.cfg.scale_boost,
           "memory_allocated_gb": torch.cuda.memory_allocated() / 2 ** 30})
@@ -1101,6 +1139,171 @@ def phase_boot_forward(sizes=(128, 700)):
     emit({"phase": "boot_forward_trace", "S": sizes[0],
           "plaintext_caches": "warm", **trace,
           "launch_shapes": _by_shape(calls, runs)})
+    HELD_BOOT_FORWARD.update(circ=circ, booter=booter, embs=embs, want=want)
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# phase native: the host codec and the ReLU gadget
+
+NATIVE_S = 700           # phase 6's request whose encoder output is saved
+NATIVE_LIFT_LIMBS = 3    # the host decrypt's default crt_limbs
+RELU = {"batch": 4, "degree": 119, "max_err": 0.05}
+
+
+def phase_native():
+    """The host codec (csrc/fastio.cpp, built by g++, through io/native.py)
+    on phase 6's production path, and Gadgets.relu on the card:
+      * the g++ build's seconds (phase card builds it beside the kernels);
+      * the S = 700 request's encoder output (6 chunks) lifted from its
+        first 3 limbs by the native lifter and by the Python-int lift:
+        equal bit for bit, with each one's ms;
+      * that output saved as a checkpoint with native pages, loaded, and
+        the request resumed from it (pooler_classifier with its
+        bootstrap): the output ciphertext equal bit for bit to the one
+        without the round trip, the logits against golden; bytes, save and
+        load seconds; a copy with one flipped byte raises the CRC error;
+      * Gadgets.relu (degree 119) on 4 fresh ciphertexts of
+        default_rng(3).uniform(-1, 1): seconds, key switches, the host
+        decrypt's error against cheb_eval of the same fit (fails above
+        0.05) and against max(x, 0).
+    Reuses phase 6's circuit when that phase ran; returns the kernel
+    launches of the resumed request and the ReLU."""
+    import shutil
+    import torch
+    from fhe_linformer_tpu_torch.ckks.encoding import \
+        crt_lift_center as python_int_lift
+    from fhe_linformer_tpu_torch.convert import ciphertext_to_numpy
+    from fhe_linformer_tpu_torch.io import native, serialize
+    from fhe_linformer_tpu_torch.ops import cuda_build
+    from fhe_linformer_tpu_torch.poly import Gadgets, cheb, cheb_eval
+    from fhe_linformer_tpu_torch.utils.timing import (GLOBAL_TIMERS,
+                                                      KERNEL_LAUNCHES,
+                                                      reset_launches)
+    if "fastio" in BUILD_REPORT:
+        build = {"s": BUILD_REPORT["fastio"]["seconds"], "in": "card"}
+    else:
+        build = {"s": cuda_build.build(("fastio",))["fastio"]["seconds"],
+                 "in": "native"}
+    build["library"] = os.path.relpath(cuda_build.library_path("fastio"),
+                                       os.path.dirname(
+                                           os.path.abspath(__file__)))
+    if HELD_BOOT_FORWARD:
+        circ, booter, embs, want = (HELD_BOOT_FORWARD.pop(k) for k in
+                                    ("circ", "booter", "embs", "want"))
+        setup = "phase boot_forward's"
+    else:
+        circ, booter, _, embs, want = _boot_forward_circuit()
+        setup = "built here"
+    ev = circ.ev
+    log: dict = {}
+    r = _encoder(circ, embs[NATIVE_S], log, booter, 12)
+
+    # the host decrypt's lift, both ways, on the encoder output
+    m = min(NATIVE_LIFT_LIMBS, r.nl)
+    coeffs = ev._coeff_residues(ev.drop_to(r, m), "the lift").cpu().numpy()
+    flat = np.ascontiguousarray(np.moveaxis(coeffs, -2, 0).reshape(m, -1),
+                                np.uint32)
+    qs = ev.ctx.qs[:m]
+    native.crt_lift_center(flat[:, :8], qs)        # the library loaded
+    t = time.perf_counter()
+    lifted = native.crt_lift_center(flat, qs)
+    native_ms = (time.perf_counter() - t) * 1e3
+    t = time.perf_counter()
+    exact = python_int_lift(flat, qs)
+    python_ms = (time.perf_counter() - t) * 1e3
+    lift = {"ciphertexts": int(np.prod(coeffs.shape[:-2])), "limbs": m,
+            "coefficients": int(flat.shape[1]), "native_ms": native_ms,
+            "python_int_ms": python_ms,
+            "log2_max_abs": float(np.log2(np.abs(exact).max())),
+            "bit_equal": bool(np.array_equal(lifted.view(np.uint64),
+                                             exact.view(np.uint64)))}
+
+    # the checkpoint round trip, and the request resumed from it
+    work = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        "chip_smoke_native")
+    os.makedirs(work, exist_ok=True)
+    path = os.path.join(work, f"encoder_S{NATIVE_S}.ct")
+    try:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        serialize.save_ciphertext(path, r)
+        save_s = time.perf_counter() - t
+        t = time.perf_counter()
+        loaded = serialize.load_ciphertext(path, ev.ctx)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t
+        ckpt = {"nl": r.nl, "shape": list(r.c0.shape),
+                "header_bytes": os.path.getsize(path),
+                "pages_bytes": os.path.getsize(path + ".pages"),
+                "save_s": save_s, "load_s": load_s,
+                "loaded_equal": _same(ciphertext_to_numpy(loaded),
+                                      ciphertext_to_numpy(r))}
+        bad = os.path.join(work, "flipped.ct")
+        shutil.copyfile(path, bad)
+        raw = bytearray(open(path + ".pages", "rb").read())
+        raw[len(raw) // 2] ^= 0x01
+        with open(bad + ".pages", "wb") as f:
+            f.write(raw)
+        try:
+            serialize.load_ciphertext(bad, ev.ctx)
+            ckpt["flipped_byte"] = "loaded"
+        except IOError as e:
+            ckpt["flipped_byte"] = str(e).replace(work, "<dir>")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    out = circ.pooler_classifier(r, boot=booter)   # without the round trip
+    torch.cuda.synchronize()
+
+    # the path: the resumed request and the ReLU
+    z = np.random.default_rng(3).uniform(-1, 1, (RELU["batch"],
+                                                 ev.ctx.cfg.slots))
+    fresh = ev.encrypt(z, batch=True)
+    torch.cuda.synchronize()
+    reset_launches()
+    t = time.perf_counter()
+    resumed = circ.pooler_classifier(loaded, boot=booter)
+    torch.cuda.synchronize()
+    ckpt["resume_s"] = time.perf_counter() - t
+    ks0 = GLOBAL_TIMERS.counts["keyswitch"]
+    t = time.perf_counter()
+    y = Gadgets(ev).relu(fresh, degree=RELU["degree"])
+    torch.cuda.synchronize()
+    relu_s = time.perf_counter() - t
+    launches = dict(KERNEL_LAUNCHES)
+    relu_ks = GLOBAL_TIMERS.counts["keyswitch"] - ks0
+
+    ckpt["resumed_equal"] = _same(ciphertext_to_numpy(resumed),
+                                  ciphertext_to_numpy(out))
+    logits = circ.decrypt_logits(resumed)
+    ckpt["argmax"] = int(np.argmax(logits))
+    ckpt["golden_argmax"] = int(np.argmax(want[NATIVE_S]))
+    ckpt["max_abs_logit_err"] = float(np.abs(logits - want[NATIVE_S]).max())
+    fit = cheb.chebyshev_fit(lambda x: np.maximum(x, 0.0), -1.0, 1.0,
+                             RELU["degree"])
+    got = np.real(ev.decrypt_host(y))
+    relu = {"n": ev.ctx.cfg.n, **RELU, "in_nl": fresh.nl, "out_nl": y.nl,
+            "s": relu_s, "keyswitches": relu_ks,
+            "max_abs_err_vs_cheb_eval": float(np.abs(got - cheb_eval(fit, z))
+                                              .max()),
+            "max_abs_err_vs_relu": float(np.abs(got - np.maximum(z, 0))
+                                         .max())}
+    emit({"phase": "native", "setup": setup, "build": build,
+          "encoder_S": NATIVE_S, "encoder_stages": log, "lift": lift,
+          "checkpoint": ckpt, "relu": relu, "kernel_launches": launches})
+    if not lift["bit_equal"]:
+        raise AssertionError("the native lift differs from the Python-int "
+                             "lift")
+    if not (ckpt["loaded_equal"] and ckpt["resumed_equal"]):
+        raise AssertionError(f"checkpoint round trip: {ckpt}")
+    if "crc mismatch" not in ckpt["flipped_byte"]:
+        raise AssertionError(f"a flipped byte gave {ckpt['flipped_byte']}")
+    if ckpt["argmax"] != ckpt["golden_argmax"] or \
+            not ckpt["max_abs_logit_err"] <= 0.05:
+        raise AssertionError(f"resumed request: logits {logits} against "
+                             f"golden {want[NATIVE_S]}")
+    if not relu["max_abs_err_vs_cheb_eval"] <= RELU["max_err"]:
+        raise AssertionError(f"relu: {relu}")
     return launches
 
 
@@ -1917,10 +2120,10 @@ def phase_parallel():
 
 
 PHASES = ("card", "kernels", "keyswitch", "forward", "bootstrap",
-          "boot_forward", "token_forward", "token_forward_ref", "ring16",
-          "parallel", "cli")
+          "boot_forward", "native", "token_forward", "token_forward_ref",
+          "ring16", "parallel", "cli")
 PATHS = {"forward": phase_forward, "bootstrap": phase_bootstrap,
-         "boot_forward": phase_boot_forward,
+         "boot_forward": phase_boot_forward, "native": phase_native,
          "token_forward": phase_token_forward,
          "token_forward_ref": phase_token_forward_ref, "ring16": phase_ring16,
          "parallel": phase_parallel}

@@ -124,3 +124,14 @@ def diagonals_of(mat: csr_matrix) -> dict[int, np.ndarray]:
         sel = k == kk
         out[int(kk)][coo.row[sel]] = coo.data[sel]
     return out
+
+
+def encode_matrix_dense(n: int) -> np.ndarray:
+    """Dense oracle (tests only, small n): the product of the special-FFT
+    stages and the bit-reversal, S_L @ ... @ S_1 @ P, as one M x M
+    matrix."""
+    P, stages = special_fft_stages(n)
+    acc = P.toarray().astype(np.complex128)
+    for s in stages:
+        acc = s.toarray() @ acc
+    return acc

@@ -178,6 +178,16 @@ class Context:
             self._galois_perm[t] = self.tensor((e_new - 1) // 2)
         return self._galois_perm[t]
 
+    def auto_coeff(self, x: np.ndarray, t: int) -> np.ndarray:
+        """Coefficient-domain automorphism X -> X^t of an integer
+        coefficient vector (host numpy)."""
+        n = self.cfg.n
+        jt = np.arange(n, dtype=np.int64) * t % (2 * n)
+        x = np.asarray(x)
+        out = np.zeros_like(x)
+        out[jt % n] = x * np.where(jt >= n, -1, 1)
+        return out
+
     # -- rescale tables ------------------------------------------------------
 
     def rescale_tables(self, nl: int) -> RescalePlan:

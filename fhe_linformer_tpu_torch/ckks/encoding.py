@@ -54,7 +54,9 @@ class Encoder:
 
 def crt_lift_center(residues: np.ndarray, primes) -> np.ndarray:
     """Centered CRT reconstruction of (L, n) residues with exact Python
-    ints, returned as float64 (the value the decoder consumes)."""
+    ints, returned as float64 (the value the decoder consumes): the plain
+    version of the native lifter `io/native.crt_lift_center`, and its path
+    at Q >= 2^120."""
     Q = 1
     for q in primes:
         Q *= int(q)

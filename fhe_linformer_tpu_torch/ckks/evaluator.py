@@ -26,6 +26,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..io.native import crt_lift_center
 from ..ops import ntt
 from ..ops.basecvt import base_convert
 from ..ops.modarith import addmod, mulmod, negmod, submod
@@ -33,7 +34,7 @@ from ..ops.ntt import NttTables
 from ..utils.timing import GLOBAL_TIMERS as _COUNTS
 from .ciphertext import Ciphertext, CoeffPlaintext, Plaintext
 from .context import Context, LevelKS, RescalePlan
-from .encoding import Encoder, crt_lift_center
+from .encoding import Encoder
 from .keys import KeySet, KSKey
 
 
@@ -258,10 +259,14 @@ class Evaluator:
         return out.cpu().numpy()
 
     def _decode(self, coeffs: np.ndarray, ct: Ciphertext, m: int):
-        qs = self.ctx.qs[:m]
-        flat = coeffs.reshape((-1,) + coeffs.shape[-2:])
-        out = np.stack([self.encoder.decode(crt_lift_center(c[:m], qs),
-                                            ct.scale) for c in flat])
+        """The centered CRT lift of the first m limbs of every ciphertext's
+        coefficient residues in one call of the native lifter
+        (io/native.py), then the float64 decode of each."""
+        sub = coeffs[..., :m, :]
+        flat = np.moveaxis(sub, -2, 0).reshape(m, -1)
+        ints = crt_lift_center(flat, self.ctx.qs[:m])
+        out = np.stack([self.encoder.decode(c, ct.scale)
+                        for c in ints.reshape(-1, self.ctx.cfg.n)])
         return out.reshape(*ct.batch_shape, self.ctx.cfg.slots)
 
     def _require_keys(self, what: str) -> KeySet:

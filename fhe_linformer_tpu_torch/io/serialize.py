@@ -2,11 +2,12 @@
 files cross between the two packages in both directions.
 
 Ciphertext file: MAGIC, a u32 header length, a JSON header {"nl", "scale",
-"shape", "pages"}, then the pages.  "inline" pages (what this package
-writes) follow the header as two blobs, c0 then c1, each a u32 ndim, ndim
-int64 dimensions and the u32 residues.  "native" pages live in a sidecar
+"shape", "pages"}, then the pages.  "native" pages (what this package
+writes, through the host codec `io/native.py`) live in a sidecar
 `<path>.pages`: a u64 count, the u32 residues of c0 then c1, and the CRC-32
-of those bytes; they are parsed here with numpy and checked with zlib.
+of those bytes.  "inline" pages (read only) follow the header as two blobs,
+c0 then c1, each a u32 ndim, ndim int64 dimensions and the u32 residues.
+`read_pages` is the plain numpy and zlib reader of the sidecar.
 
 Keystore: a directory of npz files, `public.npz` (p0, p1), `relin.npz`,
 `rot_<shift>.npz`, `conj.npz` and, unless withheld, `secret.npz`.  A
@@ -28,18 +29,13 @@ from ..ckks.ciphertext import Ciphertext
 from ..ckks.context import Context
 from ..ckks.keys import KeySet, KSKey, PublicKey, SecretKey, \
     seeded_uniform_eval
+from . import native
 
 MAGIC = b"FHETPU01"
 
 
 def _u32(t) -> np.ndarray:
     return np.ascontiguousarray(t.cpu().numpy().astype(np.uint32))
-
-
-def _write_blob(f, arr: np.ndarray):
-    f.write(struct.pack("<I", arr.ndim))
-    f.write(struct.pack(f"<{arr.ndim}q", *arr.shape))
-    f.write(arr.astype(np.uint32).tobytes())
 
 
 def _read_blob(f) -> np.ndarray:
@@ -50,7 +46,8 @@ def _read_blob(f) -> np.ndarray:
 
 
 def read_pages(path: str) -> np.ndarray:
-    """A native sidecar page file -> its u32 residues, CRC-32 checked."""
+    """A native sidecar page file -> its u32 residues, CRC-32 checked (the
+    plain version of `native.read_blob`)."""
     with open(path, "rb") as f:
         raw = f.read()
     if len(raw) < 12:
@@ -65,16 +62,19 @@ def read_pages(path: str) -> np.ndarray:
 
 
 def save_ciphertext(path: str, ct: Ciphertext):
+    """The header at `path`, the residues as native pages at
+    `path + ".pages"`."""
     c0, c1 = _u32(ct.c0), _u32(ct.c1)
     meta = {"nl": ct.nl, "scale": ct.scale, "shape": list(c0.shape),
-            "pages": "inline"}
+            "pages": "native"}
+    if not native.write_blob(path + ".pages",
+                             np.concatenate([c0.reshape(-1), c1.reshape(-1)])):
+        raise IOError(f"cannot write {path}.pages")
     with open(path, "wb") as f:
         f.write(MAGIC)
         hdr = json.dumps(meta).encode()
         f.write(struct.pack("<I", len(hdr)))
         f.write(hdr)
-        _write_blob(f, c0)
-        _write_blob(f, c1)
 
 
 def load_ciphertext(path: str, ctx: Context) -> Ciphertext:
@@ -85,7 +85,7 @@ def load_ciphertext(path: str, ctx: Context) -> Ciphertext:
         ln = struct.unpack("<I", f.read(4))[0]
         meta = json.loads(f.read(ln))
         if meta.get("pages") == "native":
-            flat = read_pages(path + ".pages")
+            flat = native.read_blob(path + ".pages")
             half = flat.size // 2
             shape = tuple(meta["shape"])
             c0, c1 = flat[:half].reshape(shape), flat[half:].reshape(shape)

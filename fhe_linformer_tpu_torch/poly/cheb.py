@@ -14,6 +14,11 @@ def chebyshev_fit(f, a: float, b: float, degree: int) -> np.ndarray:
     return cheb.coef
 
 
+def cheb_eval(coeffs: np.ndarray, y: np.ndarray) -> np.ndarray:
+    """The T-basis series at y in [-1, 1] (the tests' oracle)."""
+    return np.polynomial.chebyshev.chebval(y, coeffs)
+
+
 def cheb_divmod(c: np.ndarray, m: int) -> tuple[np.ndarray, np.ndarray]:
     """Divide a T-basis series by T_m: c = q * T_m + r with deg(r) < m,
     using T_i = 2*T_(i-m)*T_m - T_|i-2m| for i > m."""

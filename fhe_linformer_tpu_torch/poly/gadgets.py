@@ -4,6 +4,7 @@
   eval_inverse - Chebyshev 1/x
   eval_gelu    - Chebyshev of 0.5*x'*(1+erf(x'/sqrt 2)), x' = x/mult
   eval_tanh    - Chebyshev of tanh(x/mult)
+  relu         - Chebyshev of max(scale*x, 0)/scale on [-1, 1]
   relu_degree_depth - the degree -> multiplicative depth table
 """
 
@@ -75,3 +76,11 @@ class Gadgets:
         """tanh(x/mult) on a mult-pre-scaled input."""
         return self.poly.eval_chebyshev_function(
             lambda x: np.tanh(x / mult), ct, a, b, degree)
+
+    def relu(self, ct: Ciphertext, scale: float = 1.0,
+             degree: int = 119) -> Ciphertext:
+        """ReLU of an input in [-1, 1], as the Chebyshev fit of
+        max(scale*x, 0)/scale; degree 119 uses depth 10 (RELU_DEPTH)."""
+        return self.poly.eval_chebyshev_function(
+            lambda x: np.maximum(x * scale, 0.0) / scale, ct, -1.0, 1.0,
+            degree)

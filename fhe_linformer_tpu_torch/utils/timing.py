@@ -1,6 +1,7 @@
-"""Operation counters and per-kernel launch counts.
+"""Wall-clock accumulators, operation counters and per-kernel launch counts.
 
-`GLOBAL_TIMERS.counts` counts the per-primitive work the evaluator does
+`GLOBAL_TIMERS.time(name)` adds a block's wall-clock seconds to
+`totals[name]` (and one to `counts[name]`); `GLOBAL_TIMERS.counts` counts the per-primitive work the evaluator does
 (`keyswitch`, `combo_rot`, `rescale`, ...) and the ciphertexts the
 bootstrap refreshes (`bootstrap`).  `KERNEL_LAUNCHES` counts each CUDA kernel's
 launches: a wrapper adds one where it launches its kernel and nowhere else,
@@ -12,19 +13,38 @@ so a run can show that its main path went through the kernels.
 from __future__ import annotations
 
 import contextlib
+import time
 from collections import defaultdict
 
 import numpy as np
 
 
 class Timers:
-    """Named op counters (the JAX package's Timers without its clocks)."""
+    """Named wall-clock accumulators and op counters."""
 
     def __init__(self):
+        self.totals = defaultdict(float)
         self.counts = defaultdict(int)
+
+    @contextlib.contextmanager
+    def time(self, name: str):
+        t0 = time.perf_counter()
+        try:
+            yield
+        finally:
+            self.totals[name] += time.perf_counter() - t0
+            self.counts[name] += 1
 
     def count(self, name: str, n: int = 1):
         self.counts[name] += n
+
+    def report(self) -> dict:
+        """{name: {"total_s", "count"}} for the timed names (seconds
+        rounded to 0.1 ms), then {name: {"count"}} for the counted ones."""
+        return {k: {"total_s": round(v, 4), "count": self.counts[k]}
+                for k, v in sorted(self.totals.items())} | {
+            k: {"count": v} for k, v in self.counts.items()
+            if k not in self.totals}
 
 
 GLOBAL_TIMERS = Timers()

@@ -4,7 +4,8 @@ plaintext golden model, at the JAX package's own tiny parameterization
 tokens per ciphertext, num_scaling 58, no bootstrap).
 
   * BlockOps.matmul on a JAX-made ciphertext: bit-exact vs JAX
-  * one degree-13 GELU gadget: bit-exact vs JAX
+  * one degree-13 GELU gadget and the ReLU gadget (degree 13 at two
+    scales; degree 119 `slow`): bit-exact vs JAX
   * the port's whole PackedLinformer.forward: logits vs golden
   * the bootstrapped forward (forward(emb, boot=...)) at the JAX test's
     own boot configuration (tests/test_circuit_packed.py: 34 scaling limbs,
@@ -135,6 +136,23 @@ def test_gelu_gadget_bit_exact(env):
     jout = JGadgets(jev).eval_gelu(jct, -1.0, 1.0, mult=0.5, degree=13)
     out = Gadgets(ev).eval_gelu(_port_ct(ev, jct), -1.0, 1.0, mult=0.5,
                                 degree=13)
+    _assert_same(out, jout)
+
+
+@pytest.mark.parametrize("scale,degree", [
+    (1.0, 13), (4.0, 13),
+    # the JAX package's XLA compiles of the degree-119 evaluation take
+    # ~90 s on a CPU
+    pytest.param(1.0, 119, marks=pytest.mark.slow)])
+def test_relu_gadget_bit_exact(env, scale, degree):
+    """Gadgets.relu (relinearisation key only) from a JAX-made ciphertext;
+    at degree 13 it runs the GELU gadget's op sequence above, so it reuses
+    the JAX package's compiles."""
+    jev, ev, _ = env
+    z = np.random.default_rng(3).uniform(-1, 1, (2, jev.ctx.cfg.slots))
+    jct = jev.encrypt(z, batch=True, nl=20)
+    jout = JGadgets(jev).relu(jct, scale=scale, degree=degree)
+    out = Gadgets(ev).relu(_port_ct(ev, jct), scale=scale, degree=degree)
     _assert_same(out, jout)
 
 

@@ -3,7 +3,7 @@ security modules against the JAX package's, at n = 256.
 
   * ciphertexts written by either package load in the other and equal what
     it held: the JAX package's "native" sidecar pages (CRC-32 checked) and
-    its inline layout, the port's inline layout
+    its inline layout, the port's native pages
   * keystores, plain and seed-compressed, both directions, with and
     without reduced-basis keys (KSKey.max_nl); the loaded keys equal the
     port's own generate_keys for the same config
@@ -108,16 +108,29 @@ def test_native_pages_crc_checked(env, tmp_path):
 
 
 def test_port_ciphertext_loads_in_jax(env, tmp_path):
+    """The port writes native CRC-checked pages (io/native.py); the JAX
+    package loads them, the plain numpy reader reads the same residues,
+    and the port loads its own file back."""
     jev, ctx, keys = env
     from fhe_linformer_tpu_torch.ckks.evaluator import Evaluator
-    ct = Evaluator(ctx, keys).encrypt(np.linspace(-1, 1, 128), nl=4)
+    ct = Evaluator(ctx, keys).encrypt(
+        np.random.default_rng(2).uniform(-1, 1, (2, 128)), batch=True, nl=4)
     path = str(tmp_path / "ct.bin")
     ser.save_ciphertext(path, ct)
-    assert not os.path.exists(path + ".pages")
+    assert os.path.exists(path + ".pages")
+    np.testing.assert_array_equal(
+        ser.read_pages(path + ".pages"),
+        np.concatenate([ct.c0.numpy().reshape(-1),
+                        ct.c1.numpy().reshape(-1)]).astype(np.uint32))
+    if jnative.get_lib() is None:
+        pytest.skip("native/fastio.so does not build or load here")
     jct = jser.load_ciphertext(path)
     assert (jct.nl, jct.scale) == (ct.nl, ct.scale)
     _eq(ct.c0, jct.c0)
     _eq(ct.c1, jct.c1)
+    back = ser.load_ciphertext(path, ctx)
+    assert (back.nl, back.scale) == (ct.nl, ct.scale)
+    assert torch.equal(back.c0, ct.c0) and torch.equal(back.c1, ct.c1)
 
 
 @pytest.mark.parametrize("compress", [True, False],

@@ -33,8 +33,9 @@ def test_import_pulls_in_no_jax():
 
 def test_no_file_names_jax_or_the_jax_package():
     pattern = re.compile(r"import jax|from jax|fhe_linformer_tpu[^_]")
-    files = list(PORT.rglob("*.py")) + list(PORT.rglob("*.cu")) + \
-        [ROOT / "chip_smoke.py"]
+    files = [f for ext in ("py", "cu", "cuh", "cpp", "h")
+             for f in PORT.rglob(f"*.{ext}")] + [ROOT / "chip_smoke.py"]
+    assert PORT / "csrc" / "fastio.cpp" in files
     hits = [f"{f.relative_to(ROOT)}:{i}" for f in files
             for i, line in enumerate(f.read_text().splitlines(), 1)
             if pattern.search(line)]
