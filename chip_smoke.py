@@ -137,13 +137,17 @@ INT8_TC_OPS_PER_S = 1979e12      # H100 SXM dense int8 tensor-core rate
 # clock per SM for 32-bit integer multiply(-add), half the float32 FMA rate
 INT_MUL_PER_CLOCK_PER_SM = 64
 PORT = "fhe_linformer_tpu_torch"
-KERNELS = ("ntt_fwd", "ntt_inv", "base_convert")
+KERNELS = ("ntt_fwd", "ntt_inv", "base_convert", "ks_mac")
+# the limb-sharded key switch has its own inner product (parallel/ksprod.py)
+SHARDED_KERNELS = ("ntt_fwd", "ntt_inv", "base_convert")
 REFERENCE = PORT.removesuffix("_torch")      # the JAX package the port mirrors
 REPLACES = {"ntt_fwd": f"{REFERENCE}/ops/ntt_pallas.py:195",
             "ntt_inv": f"{REFERENCE}/ops/ntt_pallas.py:199",
-            "base_convert": f"{REFERENCE}/ops/basecvt.py:81"}
+            "base_convert": f"{REFERENCE}/ops/basecvt.py:81",
+            "ks_mac": "none: plain XLA in the JAX package"}
 SOURCES = {"ntt_fwd": f"{PORT}/csrc/ntt.cu", "ntt_inv": f"{PORT}/csrc/ntt.cu",
-           "base_convert": f"{PORT}/csrc/basecvt.cu"}
+           "base_convert": f"{PORT}/csrc/basecvt.cu",
+           "ks_mac": f"{PORT}/csrc/ksmac.cu"}
 LOG2N = 15
 MODDOWN_BATCH = 16       # the mod-down's batch on the forward (2 halves x 8)
 # the JAX package's records of the same requests on its own chip: counts
@@ -390,6 +394,53 @@ def _bc_case(bc, g_valid, B, prefolded, gen, reps, n=1 << LOG2N):
             "bound_ms": b_ms, "bound_by": b_by}
 
 
+def _ksmac_case(ctx, nl, B, gen, reps, gather=False, sel=None,
+                lead=None):
+    """K4 at level nl of `ctx`'s chain: the key inner products of B
+    ciphertexts' digits against a random full-basis key (H = 2), or with
+    `sel`, a rotation combo's plaintext sums over the key halves' stage-1
+    rows (a: (S, *lead, nl + k, n), H = 1); `gather`: through a Galois
+    permutation read in place."""
+    import torch
+    from fhe_linformer_tpu_torch.ops import ksmac
+    ks = ctx.ks_tables(nl)
+    n, R = ctx.cfg.n, len(ks.tgt_idx)
+    tgt = [ctx.basis[i] for i in ks.tgt_idx]
+    perm = ctx.galois_perm(ctx.galois_t(5)) if gather else None
+    if sel is None:
+        nd = ks.bc.nd
+        J = nd
+        a = random_residues((nd, B, R, n), tgt, gen, "cuda")
+        w = tuple(random_residues((nd, len(ctx.basis), n), ctx.basis, gen,
+                                  "cuda") for _ in range(2))
+        kw = dict(split=nl, w_off=ctx.num_q - nl, perm=perm)
+        shape = [nd, B, R, n]
+    else:
+        J = len(sel)
+        a = random_residues((max(sel) + 1,) + tuple(lead) + (R, n), tgt, gen,
+                            "cuda")
+        w = (random_residues((J, R, n), tgt, gen, "cuda"),)
+        kw = dict(sel=sel, perm=perm)
+        B = int(np.prod(lead))
+        shape = [J, *lead, R, n]
+    run = lambda: ksmac.ks_mac_cuda(a, w, ks.q_tgt, **kw)
+    err = _held("ks_mac", run(), ksmac.ks_mac_plain(a, w, ks.q_tgt, **kw),
+                shape)
+    H = len(w)
+    # each residue of a read once, each weight row once, each output once;
+    # a product is a 32 x 32 -> 64-bit multiply (2 multiplies), a Barrett
+    # reduction per 8 products 5 more
+    nbytes = 4 * R * n * (J * B + H * J + H * B)
+    muls = H * B * R * n * (2 * J + 5 * -(-J // 8))
+    b_ms, b_by = bound(nbytes, muls)
+    return {"kernel": "ks_mac", "n": n, "nl": nl, "rows": R, "J": J, "B": B,
+            "H": H, "gather": gather, "shape": shape, "max_abs_err": err,
+            "ms": cuda_ms(run, reps, inner=10),
+            "plain_ms": cuda_ms(lambda: ksmac.ks_mac_plain(
+                a, w, ks.q_tgt, **kw), 3, 1),
+            "bound_ms": b_ms, "bound_by": b_by}
+
+
 def _ring16_cases(ctx, gen):
     """The kernels at ring 2^16 (linformer-128c), at the shapes of phase
     ring16's batch-2 bootstrap: its mod-raise (K2 on limb 0 read in place,
@@ -519,6 +570,22 @@ def phase_kernels(ctx, tiny, ring16):
             # of one output ciphertext (the packed pooler keeps chunk 0, so
             # its output is one ciphertext, as config 5's)
             _inv_case(ctx.ntt, (), (0, 1, 2), 0, gen, 20)]
+    # K4: first the per-token FFN's key switch (level 22, batch 8; the
+    # main shape), then the same through a Galois gather, the top and
+    # bottom of the bootstrapped chain, one ciphertext's hoisted rotation,
+    # and the packed combo's plaintext sums over 16 babies (the key halves
+    # of 1 and 8 ciphertexts); then ring 2^8 (8 digits) and ring 2^16
+    rows += [_ksmac_case(ctx, 22, 8, gen, 20),
+             _ksmac_case(ctx, 22, 8, gen, 20, gather=True),
+             _ksmac_case(ctx, 59, 8, gen, 20),
+             _ksmac_case(ctx, 7, 8, gen, 20),
+             _ksmac_case(ctx, 12, 1, gen, 20, gather=True),
+             _ksmac_case(ctx, 22, 1, gen, 20, sel=list(range(15, -1, -1)),
+                         lead=(2, 1)),
+             _ksmac_case(ctx, 22, 8, gen, 20, sel=list(range(0, 32, 2)),
+                         lead=(2, 8)),
+             _ksmac_case(tiny, tiny.num_q, 8, gen, 20),
+             _ksmac_case(ring16, 22, 2, gen, 20, gather=True)]
     # the CLI phase's ring 2^8 (preset tiny): the one-block-per-row K1/K2
     # on a batch-8 key switch's rows at the top level (59 + 8 limbs, the
     # digit map), the rescale's top limb read in place, and K3's
@@ -1885,12 +1952,12 @@ def _host_logits(circ, out, packed):
     return vals[:ncls] if packed else vals[: ncls * circ.ops.d: circ.ops.d]
 
 
-def _add_rank_launches(launches, res, what):
+def _add_rank_launches(launches, res, what, kernels=KERNELS):
     """Add each rank's launches on the sharded or dp path alone (the ranks
     count around those calls only) to `launches`; fails if a rank launched
-    some kernel no time."""
+    one of `kernels` no time."""
     for rank, r in enumerate(res):
-        missing = [k for k in KERNELS if r["launches"][k] <= 0]
+        missing = [k for k in kernels if r["launches"][k] <= 0]
         if missing:
             raise AssertionError(f"{what}: rank {rank} never launched "
                                  f"{missing}")
@@ -1933,7 +2000,8 @@ def _parallel_keyswitch(launches):
         if not np.array_equal(a["z"], want[b0:b1, r0:r1]):
             raise AssertionError("the attention step differs from the plain "
                                  f"NTT at batch {b0}:{b1}, rows {r0}:{r1}")
-    _add_rank_launches(launches, res, "the sharded key switch")
+    _add_rank_launches(launches, res, "the sharded key switch",
+                       SHARDED_KERNELS)
     sharded = [r["keyswitch_sharded"] for r in res]
     if min(sharded) <= 0:
         raise AssertionError(f"keyswitch_sharded per rank {sharded}")

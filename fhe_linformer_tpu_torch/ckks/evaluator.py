@@ -17,8 +17,10 @@ runs its share of the batch on this rank of a dp mesh
 Every key switch funnels through `_galois_many` or `_relin`: inverse NTT
 of the input (kernel K2), digit decomposition by fused base conversion
 (K3) and forward NTT of the digit rows (K1), the key inner products
-(`_inner_ext`, which reads each key's own rows: full-basis or
-reduced-basis, KSKey.max_nl), then the mod-down (K2, K3 prefolded, K1).
+(`_inner_ext`, kernel K4 `ks_mac`, which reads each key's own rows:
+full-basis or reduced-basis, KSKey.max_nl), then the mod-down (K2, K3
+prefolded, K1).  A hoisted rotation hands K4 its Galois permutation, which
+it reads in place; the rotation combo's plaintext sums run on K4 too.
 """
 
 from __future__ import annotations
@@ -29,6 +31,7 @@ import torch
 from ..io.native import crt_lift_center
 from ..ops import ntt
 from ..ops.basecvt import base_convert
+from ..ops.ksmac import ks_mac
 from ..ops.modarith import addmod, mulmod, negmod, submod
 from ..ops.ntt import NttTables
 from ..utils.timing import GLOBAL_TIMERS as _COUNTS
@@ -45,12 +48,21 @@ def _nct(ct: Ciphertext) -> int:
 
 def _run_chunks(core, flat, chunk: int):
     """core over consecutive chunks of at most `chunk` rows of the
-    flattened operands, the outputs concatenated."""
+    flattened operands, each chunk's outputs written into the whole batch's
+    as it ends (so the chunks' outputs and their concatenation are never
+    held at once)."""
     n = flat[0].shape[0]
     if n <= chunk:
         return core(*flat)
-    outs = [core(*(f[s: s + chunk] for f in flat)) for s in range(0, n, chunk)]
-    return tuple(torch.cat(o) for o in zip(*outs))
+    outs = None
+    for s in range(0, n, chunk):
+        part = core(*(f[s: s + chunk] for f in flat))
+        if outs is None:
+            outs = tuple(o.new_empty((n,) + o.shape[1:]) for o in part)
+        for o, p in zip(outs, part):
+            o[s: s + p.shape[0]] = p
+        del part
+    return outs
 
 
 class Evaluator:
@@ -688,13 +700,13 @@ class Evaluator:
         _COUNTS.count("rotation_hoisted", len(shifts) * _nct(ct))
         ks = ctx.ks_tables(ct.nl)
         y_e = _hoist_decompose(ctx, ct.c1, ks)
-        c0ps, accs = [], []
-        for r in shifts:
+        acc = y_e.new_empty((2, len(shifts)) + y_e.shape[1:])
+        c0ps = []
+        for i, r in enumerate(shifts):
             perm = self._perm(r)
             c0ps.append(ct.c0.index_select(-1, perm))
-            accs.append(torch.stack(_inner_ext(
-                ctx, y_e.index_select(-1, perm), self._rot_key(r), ks)))
-        k = _mod_down(ctx, torch.stack(accs, 1), ks)      # (2, S, ..., nl, N)
+            _inner_ext(ctx, y_e, self._rot_key(r), ks, perm, out=acc[:, i])
+        k = _mod_down(ctx, acc, ks)                       # (2, S, ..., nl, N)
         return ct.with_data(addmod(torch.stack(c0ps), k[0], ks.q_act), k[1])
 
     def multi_rotate_sum(self, cts: Ciphertext, shifts) -> Ciphertext:
@@ -848,10 +860,10 @@ class Evaluator:
             for _, p in rot_items:
                 assert abs(p.scale / scale - 1.0) < 1e-12
             stage1 = self.combo_stage1(ct, y_e, [r for r, _ in rot_items], ks)
-            a0q, a0e, a1e = self._stage2_sums(
+            a0q, a01 = self._stage2_sums(
                 stage1, list(range(len(rot_items))),
                 [p for _, p in rot_items], ks)
-            k = _mod_down(self.ctx, torch.stack((a0e, a1e)), ks)
+            k = _mod_down(self.ctx, a01, ks)
             out = Ciphertext(addmod(a0q, k[0], ks.q_act), k[1], nl,
                              ct.scale * scale)
         for _, p in id_items:
@@ -885,16 +897,15 @@ class Evaluator:
     def combo_stage1(self, ct: Ciphertext, y_e, shifts, ks: LevelKS):
         """Per-baby work shared by every giant group: the Galois
         permutation of (c0, y_e) and the extended-basis key inner products.
-        Returns stacked (c0p, t0, t1) with a row per shift."""
-        c0ps, t0s, t1s = [], [], []
-        for r in shifts:
+        Returns (c0p, t01): c0p (S, ..., nl, N) and t01 (S, 2, ..., nl + k,
+        N), the two key halves' products, with a row per shift."""
+        c0ps = []
+        t01 = y_e.new_empty((len(shifts), 2) + y_e.shape[1:])
+        for i, r in enumerate(shifts):
             perm = self._perm(r)
             c0ps.append(ct.c0.index_select(-1, perm))
-            t0, t1 = _inner_ext(self.ctx, y_e.index_select(-1, perm),
-                                self._rot_key(r), ks)
-            t0s.append(t0)
-            t1s.append(t1)
-        return torch.stack(c0ps), torch.stack(t0s), torch.stack(t1s)
+            _inner_ext(self.ctx, y_e, self._rot_key(r), ks, perm, out=t01[i])
+        return torch.stack(c0ps), t01
 
     def _pt_expand_q(self, p: CoeffPlaintext, ks: LevelKS) -> Plaintext:
         """Coefficient plaintext -> eval rows over the active Q basis."""
@@ -915,21 +926,15 @@ class Evaluator:
                 "rotation-combo plaintexts need encode(..., specials=True)"
         return torch.stack([p.data for p in pts])
 
-    def _stage2_sums(self, stage1, idx, pts, ks: LevelKS):
+    def _stage2_sums(self, stage1, idx, pts, ks: LevelKS, out=None):
         """Plaintext-weighted sums of stage-1 rows `idx` for one giant
-        group: (a0 over Q, t0-sum and t1-sum over Q u P)."""
-        ctx = self.ctx
-        c0ps, t0s, t1s = stage1
-        nl = ks.nl
-        pt = self._ext_rows(pts, ks)
-        pt = pt.view((len(pts),) + (1,) * (c0ps.dim() - 3) + pt.shape[1:])
-        sel = torch.tensor(idx, device=ctx.device)
-
-        def wsum(rows, w, q):
-            prod = torch.remainder(rows.index_select(0, sel).long() * w, q)
-            return torch.remainder(prod.sum(0), q).int()
-        return (wsum(c0ps, pt[..., :nl, :], ks.q_act),
-                wsum(t0s, pt, ks.q_tgt), wsum(t1s, pt, ks.q_tgt))
+        group: (a0 over Q, the t0 and t1 sums over Q u P stacked), the
+        latter written into `out` (2, ..., nl + k, N) when given."""
+        c0ps, t01 = stage1
+        pt = (self._ext_rows(pts, ks),)           # (R, nl + k, N) weights
+        return (ks_mac(c0ps, pt, ks.q_act, sel=idx)[0],
+                ks_mac(t01, pt, ks.q_tgt, sel=idx,
+                       out=None if out is None else out[None])[0])
 
     def combo_stage2(self, ct: Ciphertext, stage1, items, shifts,
                      ks: LevelKS) -> Ciphertext:
@@ -947,10 +952,10 @@ class Evaluator:
             _COUNTS.count("keyswitch", _nct(ct))
             for _, p in rot_items:
                 assert abs(p.scale / scale - 1.0) < 1e-12
-            a0q, a0e, a1e = self._stage2_sums(
+            a0q, a01 = self._stage2_sums(
                 stage1, [pos[r] for r, _ in rot_items],
                 [p for _, p in rot_items], ks)
-            k = _mod_down(self.ctx, torch.stack((a0e, a1e)), ks)
+            k = _mod_down(self.ctx, a01, ks)
             out = Ciphertext(addmod(a0q, k[0], ks.q_act), k[1], nl,
                              ct.scale * scale)
         for _, p in id_items:
@@ -968,7 +973,9 @@ class Evaluator:
         slots = ctx.cfg.slots
         pos = {r: i for i, r in enumerate(shifts)}
         scale = groups[0][1][0][1].scale
-        a0qs, a0es, a1es, id_extra = [], [], [], []
+        c0ps, t01 = stage1
+        a01 = t01.new_empty((len(groups),) + t01.shape[1:])  # (G, 2, ...)
+        a0qs, id_extra = [], []
         n_rot = 0
         for g, (_, items) in enumerate(groups):
             rot = []
@@ -980,21 +987,17 @@ class Evaluator:
                     rot.append((r, p))
             n_rot += len(rot)
             if rot:
-                sums = self._stage2_sums(stage1, [pos[r] for r, _ in rot],
-                                         [p for _, p in rot], ks)
+                a0qs.append(self._stage2_sums(
+                    stage1, [pos[r] for r, _ in rot], [p for _, p in rot], ks,
+                    out=a01[g])[0])
             else:
-                z = stage1[0][0]
-                sums = (torch.zeros_like(z), torch.zeros_like(stage1[1][0]),
-                        torch.zeros_like(stage1[1][0]))
-            a0qs.append(sums[0])
-            a0es.append(sums[1])
-            a1es.append(sums[2])
+                a0qs.append(torch.zeros_like(c0ps[0]))
+                a01[g].zero_()
         _COUNTS.count("combo_rot", n_rot * _nct(ct))
         _COUNTS.count("keyswitch", len(groups) * _nct(ct))      # G mod-downs
-        k = _mod_down(ctx, torch.stack((torch.stack(a0es), torch.stack(a1es))),
-                      ks)
-        c0 = addmod(torch.stack(a0qs), k[0], ks.q_act)
-        c1 = k[1]
+        k = _mod_down(ctx, a01, ks)                   # (G, 2, ..., nl, N)
+        c0 = addmod(torch.stack(a0qs), k[:, 0], ks.q_act)
+        c1 = k[:, 1]                          # each c1[g] contiguous
         for g, p in id_extra:
             t = self.mul_plain(ct, self._pt_expand_q(p, ks), rescale=False)
             c0[g] = addmod(c0[g], t.c0, ks.q_act)
@@ -1037,26 +1040,18 @@ def _hoist_decompose(ctx: Context, c1, ks: LevelKS):
     return _ks_decompose(ctx, ntt.inv(c1, ctx.ntt, ks.act_idx), ks, c1)
 
 
-def _inner_ext(ctx: Context, y_e, key: KSKey, ks: LevelKS):
+def _inner_ext(ctx: Context, y_e, key: KSKey, ks: LevelKS, perm=None,
+               out=None):
     """Key-digit inner products over the extended basis Q u P (the mod-down
-    is the caller's).  The key's rows are read in place: actives [0, nl)
-    and the specials block, which starts at row num_q of a full-basis key
-    and at row max_nl of a reduced-basis one (a level above max_nl
-    raises)."""
-    nd = y_e.shape[0]
+    is the caller's) of the digits y_e (nd, ..., nl + k, N), Galois-permuted
+    by `perm` when given: (2, ..., nl + k, N), the key's b and a halves,
+    written into `out` when given.  The key's rows are read in place:
+    actives [0, nl) and the specials block, which starts at row num_q of a
+    full-basis key and at row max_nl of a reduced-basis one (a level above
+    max_nl raises)."""
     nl = ks.nl
-    sp = key.sp_row(ctx, nl)
-    bshape = (nd,) + (1,) * (y_e.dim() - 3)
-    out = []
-    for half in (key.b, key.a):
-        parts = []
-        for y, k, q in ((y_e[..., :nl, :], half[:nd, :nl], ks.q_act),
-                        (y_e[..., nl:, :], half[:nd, sp:], ks.q_sp)):
-            k = k.reshape(bshape + k.shape[1:])
-            prod = torch.remainder(y.long() * k, q)
-            parts.append(torch.remainder(prod.sum(0), q).int())
-        out.append(torch.cat(parts, -2))
-    return out[0], out[1]
+    return ks_mac(y_e, (key.b, key.a), ks.q_tgt, split=nl,
+                  w_off=key.sp_row(ctx, nl) - nl, perm=perm, out=out)
 
 
 def _md_overflow(w, mdq40):
@@ -1104,9 +1099,10 @@ def _galois_many(ctx: Context, c0s, c1s, perms, keys, ks: LevelKS):
     r0 = torch.stack([c.index_select(-1, p) for c, p in zip(c0s, perms)])
     r1 = torch.stack([c.index_select(-1, p) for c, p in zip(c1s, perms)])
     y_e = _hoist_decompose(ctx, r1, ks)              # (nd, G, ..., tgt, N)
-    accs = [torch.stack(_inner_ext(ctx, y_e[:, g], key, ks))
-            for g, key in enumerate(keys)]
-    k = _mod_down(ctx, torch.stack(accs, 1), ks)      # (2, G, ..., nl, N)
+    acc = y_e.new_empty((2,) + y_e.shape[1:])
+    for g, key in enumerate(keys):
+        _inner_ext(ctx, y_e[:, g], key, ks, out=acc[:, g])
+    k = _mod_down(ctx, acc, ks)                       # (2, G, ..., nl, N)
     return addmod(r0, k[0], ks.q_act), k[1]
 
 
@@ -1117,7 +1113,7 @@ def _galois_core(ctx: Context, c0, c1, perm, key: KSKey, ks: LevelKS):
 
 def _relin(ctx: Context, d2, relin: KSKey, ks: LevelKS):
     y_e = _hoist_decompose(ctx, d2, ks)
-    k = _mod_down(ctx, torch.stack(_inner_ext(ctx, y_e, relin, ks)), ks)
+    k = _mod_down(ctx, _inner_ext(ctx, y_e, relin, ks), ks)
     return k[0], k[1]
 
 

@@ -15,6 +15,16 @@ __device__ __forceinline__ uint32_t shoup_mul(uint32_t a, uint32_t w,
   return r >= q ? r - q : r;
 }
 
+// x mod q for any 64-bit x, by Barrett reduction with mu = floor((2^64 - 1)
+// / q) (= floor(2^64 / q), q odd): the quotient estimate undershoots by at
+// most 1, so x - estimate * q lies in [0, 2q) and one subtract finishes.
+__device__ __forceinline__ uint32_t barrett_reduce64(uint64_t x, uint64_t mu,
+                                                     uint32_t q) {
+  const uint64_t t = __umul64hi(x, mu);
+  const uint32_t r = static_cast<uint32_t>(x - t * q);
+  return r >= q ? r - q : r;
+}
+
 __device__ __forceinline__ uint32_t add_mod(uint32_t a, uint32_t b,
                                             uint32_t q) {
   const uint32_t r = a + b;

@@ -51,7 +51,7 @@ GLOBAL_TIMERS = Timers()
 
 # kernel name -> launches; the names are the ones chip_smoke.py reports
 KERNEL_LAUNCHES: dict[str, int] = {"ntt_fwd": 0, "ntt_inv": 0,
-                                   "base_convert": 0}
+                                   "base_convert": 0, "ks_mac": 0}
 
 
 # collective -> bytes of the tensors this process handed to it
