@@ -124,31 +124,44 @@ class Evaluator:
         data = ntt.fwd(self._spread(ctx.tensor(coeffs), limbs), ctx.ntt, limbs)
         return Plaintext(data if batch else data[0], nl, scale)
 
+    def cached(self, key, make, holds=None):
+        """make() memoized in the plaintext cache by a caller-supplied
+        stable key.  A key that names an object by id() passes the object
+        as `holds`: the entry keeps it alive, so its id cannot pass to
+        another object while the entry lives."""
+        if key not in self._enc_cache:
+            self._enc_cache[key] = (holds, make())
+        return self._enc_cache[key][1]
+
     def encode_cached(self, key, values, nl: int | None = None,
                       scale: float | None = None, specials: bool = False,
-                      holds=None) -> Plaintext:
-        """encode() memoized by a caller-supplied stable key.  A key that
-        names an object by id() passes the object as `holds`: the entry
-        keeps it alive, so its id cannot pass to another object while the
-        entry lives."""
-        k = (key, nl, scale, specials)
-        if k not in self._enc_cache:
-            self._enc_cache[k] = (holds, self.encode(
-                values, nl=nl, scale=scale, specials=specials))
-        return self._enc_cache[k][1]
+                      holds=None, batch: bool = False) -> Plaintext:
+        """encode() memoized by a caller-supplied stable key (`holds` as
+        for cached)."""
+        return self.cached(
+            (key, nl, scale, specials) + (("batch",) if batch else ()),
+            lambda: self.encode(values, nl=nl, scale=scale, batch=batch,
+                                specials=specials), holds)
 
     def encode_coeff_cached(self, key, values, scale: float | None = None,
                             holds=None) -> CoeffPlaintext:
         """Level-independent plaintext (scaled int64 coefficients on the
         device), memoized by a caller-supplied stable key (`holds` as for
-        encode_cached)."""
-        k = (key, float(scale) if scale is not None else None, "coeff")
-        if k not in self._enc_cache:
-            sc = self.ctx.delta if scale is None else scale
-            coeffs = self.encoder.encode(np.asarray(values), sc)
-            self._enc_cache[k] = (holds, CoeffPlaintext(
-                self.ctx.tensor(coeffs), sc))
-        return self._enc_cache[k][1]
+        cached)."""
+        sc = self.ctx.delta if scale is None else scale
+        return self.cached(
+            (key, float(scale) if scale is not None else None, "coeff"),
+            lambda: CoeffPlaintext(self.ctx.tensor(self.encoder.encode(
+                np.asarray(values), sc)), sc), holds)
+
+    def encode_coeff_many(self, rows, scale: float | None = None
+                          ) -> list[CoeffPlaintext]:
+        """Level-independent plaintexts of the rows of `rows` (R, <=
+        slots), uncached, the transforms on the device
+        (Encoder.encode_many)."""
+        sc = self.ctx.delta if scale is None else scale
+        coeffs = self.encoder.encode_many(rows, sc, self.ctx.device)
+        return [CoeffPlaintext(c, sc) for c in coeffs]
 
     def encode_const(self, c: float, nl: int | None = None,
                      scale: float | None = None) -> Plaintext:
@@ -915,9 +928,11 @@ class Evaluator:
 
     def _ext_rows(self, pts, ks: LevelKS) -> torch.Tensor:
         """(R, nl + k, N) eval rows over Q u P of the plaintexts `pts`:
-        coefficient plaintexts spread and transformed, extended-basis
-        eval plaintexts (encode(..., specials=True)) as they are."""
+        coefficient plaintexts spread and transformed (counted in
+        `pt_rows`, one per residue row made), extended-basis eval
+        plaintexts (encode(..., specials=True)) as they are."""
         if isinstance(pts[0], CoeffPlaintext):
+            _COUNTS.count("pt_rows", len(pts) * len(ks.tgt_idx))
             coeffs = torch.stack([p.coeffs for p in pts])
             return ntt.fwd(self._spread(coeffs, ks.tgt_idx), self.ctx.ntt,
                            ks.tgt_idx)

@@ -260,11 +260,7 @@ class PackedOps:
             scale = qd
         else:
             scale = scale or ev.ctx.delta
-        stride = self._diag_stride(diags.keys(), self.slots)
-        by_giant: dict[int, dict[int, np.ndarray]] = {}
-        for k, d in diags.items():
-            g, j = divmod((k % self.slots) // stride, bs)
-            by_giant.setdefault(g, {})[j] = d
+        stride, by_giant = self.by_giant(diags, bs)
         acc = self._bsgs_combo(ct, diags, by_giant, bs, stride, scale) \
             if self.bsgs_combo else \
             self._bsgs_hoisted(ct, diags, by_giant, bs, stride, scale)
@@ -279,33 +275,77 @@ class PackedOps:
             acc.scale = ct.scale / qd2
         return acc
 
+    def by_giant(self, diags: dict, bs: int):
+        """(stride, {giant g: {baby j: diagonal}}) of a diagonal set, each
+        offset k = stride*(g*bs + j)."""
+        stride = self._diag_stride(diags.keys(), self.slots)
+        by_giant: dict[int, dict[int, np.ndarray]] = {}
+        for k, d in diags.items():
+            g, j = divmod((k % self.slots) // stride, bs)
+            by_giant.setdefault(g, {})[j] = d
+        return stride, by_giant
+
     def _bsgs_combo(self, ct, diags, by_giant, bs, stride, scale):
+        groups = self.ev.cached(
+            ("combo", id(diags), bs, float(scale)),
+            lambda: self.combo_plaintexts(by_giant, bs, stride, scale),
+            holds=diags)
+        babies = self.combo_babies([groups])
+        stage1 = self.combo_stage1(ct, babies)
+        return self.combo_groups(ct, stage1, groups, babies)
+
+    def combo_plaintexts(self, by_giant, bs: int, stride: int,
+                         scale: float | None = None, tile: int = 1):
+        """The combo's giant groups [(giant shift, [(baby shift,
+        CoeffPlaintext)])] of a by_giant set: each diagonal rolled by its
+        giant shift g*bs*stride, repeated `tile` times (a d-lane pattern
+        over the slots), and all of them encoded in one batch on the device
+        (Evaluator.encode_coeff_many)."""
+        ev = self.ev
+        items = [(g, j, d) for g, js in sorted(by_giant.items())
+                 for j, d in sorted(js.items())]
+        rows = torch.as_tensor(np.stack([
+            np.roll(np.asarray(d), g * bs * stride) for g, _, d in items]),
+            device=ev.ctx.device).repeat(1, tile)
+        pts = iter(ev.encode_coeff_many(rows, scale))
+        groups: dict = {}
+        for g, j, _ in items:
+            groups.setdefault(g * bs * stride, []).append(
+                (j * stride, next(pts)))
+        return list(groups.items())
+
+    @staticmethod
+    def combo_babies(group_sets) -> list[int]:
+        """The nonzero baby shifts of every group set, sorted: the rows of
+        the stage 1 that the sets share."""
+        return sorted({r for groups in group_sets for _, items in groups
+                       for r, _ in items if r})
+
+    def combo_stage1(self, ct: Ciphertext, babies):
+        """The combo's stage 1 of ct over `babies` (None without babies):
+        the decomposition, the baby permutations and their key inner
+        products, computed once for every group set applied to ct."""
+        if not babies:
+            return None
         ev = self.ev
         ks = ev.ctx.ks_tables(ct.nl)
-        y_e = ev.hoist_decompose(ct, ks)
-        baby_shifts = sorted({j * stride for js in by_giant.values()
-                              for j in js if j})
-        stage1 = ev.combo_stage1(ct, y_e, baby_shifts, ks) \
-            if baby_shifts else None
-        groups = []
-        for g, js in sorted(by_giant.items()):
-            items = []
-            for j, d in sorted(js.items()):
-                dk = np.roll(np.asarray(d), g * bs * stride)
-                cp = ev.encode_coeff_cached((id(diags), g, j), dk, scale=scale,
-                                            holds=diags)
-                items.append((j * stride, cp))
-            groups.append((g * bs * stride, items))
+        return ev.combo_stage1(ct, ev.hoist_decompose(ct, ks), babies, ks)
+
+    def combo_groups(self, ct: Ciphertext, stage1, groups, babies):
+        """sum over giant groups (shift, [(baby shift, CoeffPlaintext)]) of
+        rotate(sum of plaintext x baby rotation, shift), from combo_stage1's
+        rows (one mod-down per group); un-rescaled."""
+        ev = self.ev
+        ks = ev.ctx.ks_tables(ct.nl)
         if stage1 is not None and ev.has_rotation_keys(gs for gs, _ in groups):
             gshifts, stacked = ev.combo_stage2_all(ct, stage1, groups,
-                                                   baby_shifts, ks)
-            acc = ev.multi_rotate_sum(stacked, gshifts)
-        else:
-            acc = None
-            for gshift, items in groups:
-                inner = ev.combo_stage2(ct, stage1, items, baby_shifts, ks)
-                rot = ev.rotate_any(inner, gshift) if gshift else inner
-                acc = rot if acc is None else ev.add(acc, rot)
+                                                   babies, ks)
+            return ev.multi_rotate_sum(stacked, gshifts)
+        acc = None
+        for gshift, items in groups:
+            inner = ev.combo_stage2(ct, stage1, items, babies, ks)
+            rot = ev.rotate_any(inner, gshift) if gshift else inner
+            acc = rot if acc is None else ev.add(acc, rot)
         return acc
 
     def _bsgs_hoisted(self, ct, diags, by_giant, bs, stride, scale):

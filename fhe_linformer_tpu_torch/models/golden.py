@@ -1,10 +1,11 @@
 """Plaintext golden Linformer: the executable oracle the encrypted circuit
 is checked against (a copy of the JAX package's `models/golden.py`).
 
-Single fused head, Linformer-projected K/V (client-side E/F compression),
-temperature-8 softmax with a deg-6 Taylor of e^x, sequence-length-adaptive
-affine in place of LayerNorm, tanh pooler on CLS, linear head.  Fully
-parameterized (d_model, k_lin, d_ffn, n_classes).
+A single fused head (or `heads` heads of d_model / heads features, each
+with its own softmax), Linformer-projected K/V (client-side E/F
+compression), temperature-8 softmax with a deg-6 Taylor of e^x,
+sequence-length-adaptive affine in place of LayerNorm, tanh pooler on CLS,
+linear head.  Fully parameterized (d_model, k_lin, d_ffn, n_classes).
 """
 
 from __future__ import annotations
@@ -109,18 +110,28 @@ def affine_norm(x, a, b, c, S_total):
     return x * (a * fL)[None, :] + (b * fL)[None, :]
 
 
-def _encoder_layer(w: LinformerWeights, x_in, X_E, X_F, cls_only, inter):
-    """One golden encoder layer (attention + affine1 + FFN + affine2)."""
+def _encoder_layer(w: LinformerWeights, x_in, X_E, X_F, cls_only, inter,
+                   heads=1):
+    """One golden encoder layer (attention + affine1 + FFN + affine2).
+    With several heads, the score, exp, attn intermediates are stacked
+    (heads, rows, k)."""
     St = x_in.shape[0]
     Q = x_in @ w.WQ.T + w.BQ[None]
     K = X_E @ w.WK.T + w.BK[None]
     V = X_F @ w.WV.T + w.BV[None]
     r = 1.0 / 8.0
     rows = Q[:1] if cls_only else Q
-    scores = rows @ K.T * r
-    e = taylor_exp(scores)
-    attn = e / e.sum(-1, keepdims=True)
-    O = attn @ V
+    hd = Q.shape[1] // heads
+    parts = []
+    for h in range(heads):
+        cols = slice(h * hd, (h + 1) * hd)
+        sc = rows[:, cols] @ K[:, cols].T * r
+        e = taylor_exp(sc)
+        at = e / e.sum(-1, keepdims=True)
+        parts.append((sc, e, at, at @ V[:, cols]))
+    scores, e, attn = (p[0] if heads == 1 else np.stack(p)
+                       for p in list(zip(*parts))[:3])
+    O = np.concatenate([p[3] for p in parts], axis=1)
     attn_out = O @ w.WO.T + w.BO[None]
     if cls_only:
         pad = np.zeros_like(x_in)
@@ -140,18 +151,19 @@ def _encoder_layer(w: LinformerWeights, x_in, X_E, X_F, cls_only, inter):
 
 
 def forward(w: LinformerWeights, emb: np.ndarray, cls_only: bool = False,
-            return_intermediates: bool = False, extra_layers=None):
+            return_intermediates: bool = False, extra_layers=None,
+            heads: int = 1):
     """Full golden forward from raw token embeddings to class
     probabilities.  extra_layers: weights for layers 2..N, whose E/F
     compression projects the layer-input activations."""
     x_in, X_E, X_F = client_preprocess(w, emb)
     St = x_in.shape[0]
     inter = {}
-    x = _encoder_layer(w, x_in, X_E, X_F, cls_only, inter)
+    x = _encoder_layer(w, x_in, X_E, X_F, cls_only, inter, heads)
     for lw in (extra_layers or []):
         XE = lw.E_w[:, :St] @ x + lw.E_b[:, None]
         XF = lw.F_w[:, :St] @ x + lw.F_b[:, None]
-        x = _encoder_layer(lw, x, XE, XF, False, inter)
+        x = _encoder_layer(lw, x, XE, XF, False, inter, heads)
 
     # pooler/classifier are model-level heads (first weights object's)
     cls = np.tanh(x[:1] @ w.Wp.T + w.bp[None])

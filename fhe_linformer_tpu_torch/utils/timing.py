@@ -1,8 +1,13 @@
 """Wall-clock accumulators, operation counters and per-kernel launch counts.
 
 `GLOBAL_TIMERS.time(name)` adds a block's wall-clock seconds to
-`totals[name]` (and one to `counts[name]`); `GLOBAL_TIMERS.counts` counts the per-primitive work the evaluator does
-(`keyswitch`, `combo_rot`, `rescale`, ...) and the ciphertexts the
+`totals[name]` (and one to `counts[name]`); the packed circuit spans its
+per-head scores (`head_scores`) and value mix (`head_mix`), on the host's
+clock with no synchronize.  `GLOBAL_TIMERS.counts` counts the
+per-primitive work the evaluator does (`keyswitch`, `combo_rot`,
+`rescale`, ...), the d x d block products of the block-major matmuls by
+ciphertext (`block_matmul`), the residue rows made from coefficient
+plaintexts for the rotation combo (`pt_rows`) and the ciphertexts the
 bootstrap refreshes (`bootstrap`).  `KERNEL_LAUNCHES` counts each CUDA kernel's
 launches: a wrapper adds one where it launches its kernel and nowhere else,
 so a run can show that its main path went through the kernels.
