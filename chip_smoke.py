@@ -137,17 +137,22 @@ INT8_TC_OPS_PER_S = 1979e12      # H100 SXM dense int8 tensor-core rate
 # clock per SM for 32-bit integer multiply(-add), half the float32 FMA rate
 INT_MUL_PER_CLOCK_PER_SM = 64
 PORT = "fhe_linformer_tpu_torch"
-KERNELS = ("ntt_fwd", "ntt_inv", "base_convert", "ks_mac")
+KERNELS = ("ntt_fwd", "ntt_inv", "base_convert", "ks_mac", "md_fold",
+           "md_lift", "md_finish")
 # the limb-sharded key switch has its own inner product (parallel/ksprod.py)
 SHARDED_KERNELS = ("ntt_fwd", "ntt_inv", "base_convert")
 REFERENCE = PORT.removesuffix("_torch")      # the JAX package the port mirrors
 REPLACES = {"ntt_fwd": f"{REFERENCE}/ops/ntt_pallas.py:195",
             "ntt_inv": f"{REFERENCE}/ops/ntt_pallas.py:199",
             "base_convert": f"{REFERENCE}/ops/basecvt.py:81",
-            "ks_mac": "none: plain XLA in the JAX package"}
+            "ks_mac": "none: plain XLA in the JAX package",
+            **{k: "none: plain XLA in the JAX package"
+               for k in ("md_fold", "md_lift", "md_finish")}}
 SOURCES = {"ntt_fwd": f"{PORT}/csrc/ntt.cu", "ntt_inv": f"{PORT}/csrc/ntt.cu",
            "base_convert": f"{PORT}/csrc/basecvt.cu",
-           "ks_mac": f"{PORT}/csrc/ksmac.cu"}
+           "ks_mac": f"{PORT}/csrc/ksmac.cu",
+           **{k: f"{PORT}/csrc/moddown.cu"
+              for k in ("md_fold", "md_lift", "md_finish")}}
 LOG2N = 15
 MODDOWN_BATCH = 16       # the mod-down's batch on the forward (2 halves x 8)
 # the JAX package's records of the same requests on its own chip: counts
@@ -441,6 +446,75 @@ def _ksmac_case(ctx, nl, B, gen, reps, gather=False, sel=None,
             "bound_ms": b_ms, "bound_by": b_by}
 
 
+def _moddown_case(ctx, nl, lead, half_dim, gen, reps):
+    """K5 at level nl of `ctx`'s chain on x (*lead, nl + k, n) with its key
+    halves on `half_dim` and a c0 addend on half 0, as the evaluator sends
+    it: each entry point held exactly against its plain version and timed
+    beside it, then the whole mod-down (K2, md_fold, K3, md_lift, K1,
+    md_finish) against the plain route on the card (K1-K3 and the torch
+    chain).  One row per entry point, then a `mod_down` row."""
+    from fhe_linformer_tpu_torch.ops import moddown, ntt
+    from fhe_linformer_tpu_torch.ops.basecvt import base_convert
+    ks = ctx.ks_tables(nl)
+    n, k = ctx.cfg.n, ctx.k_sp
+    x = random_residues(tuple(lead) + (nl + k, n),
+                        [ctx.basis[i] for i in ks.tgt_idx], gen, "cuda")
+    rest = tuple(lead[:half_dim]) + tuple(lead[half_dim + 1:])
+    add = (random_residues(rest + (nl, n), ctx.qs[:nl], gen, "cuda"), None)
+    B = x.numel() // ((nl + k) * n)
+    vp = ntt.inv(x[..., nl:, :], ctx.ntt, ks.sp_idx)
+    w, v = moddown.md_fold_plain(vp, ks)
+    y = base_convert(w, ks.md, prefolded=True)[0]
+    y_e = ntt.fwd(moddown.md_lift_plain(y, v, ks), ctx.ntt, ks.act_idx)
+    shape = [*lead, nl + k, n]
+    got_w, got_v = moddown.md_fold(vp, ks)
+    errs = {"md_fold": max(_held("md_fold", got_w, w, shape),
+                           _held("md_fold", got_v, v, shape)),
+            "md_lift": _held("md_lift", moddown.md_lift(y.clone(), v, ks),
+                             moddown.md_lift_plain(y, v, ks), shape),
+            "md_finish": _held(
+                "md_finish", moddown.md_finish(x, y_e, ks, add, half_dim),
+                moddown.md_finish_plain(x, y_e, ks, add, half_dim), shape),
+            "mod_down": _held(
+                "mod_down", moddown.mod_down_cuda(x, ctx.ntt, ks, add,
+                                                  half_dim),
+                moddown.mod_down_plain(x, ctx.ntt, ks, add, half_dim),
+                shape)}
+    # each residue read once and written once (4 bytes); multiplies: a
+    # Shoup product is 3, the fold's two partial products 2 more
+    work = {"md_fold": (4 * B * n * (2 * k + 1), 5 * B * n * k,
+                        lambda: moddown.md_fold(vp, ks),
+                        lambda: moddown.md_fold_plain(vp, ks)),
+            "md_lift": (4 * B * n * (2 * nl + 1), 3 * B * n * nl,
+                        lambda: moddown.md_lift(y, v, ks),
+                        lambda: moddown.md_lift_plain(y, v, ks)),
+            "md_finish": (4 * B * n * nl * 3 + 4 * (B // 2) * n * nl,
+                          3 * B * n * nl,
+                          lambda: moddown.md_finish(x, y_e, ks, add,
+                                                    half_dim),
+                          lambda: moddown.md_finish_plain(x, y_e, ks, add,
+                                                          half_dim))}
+    out = []
+    for name, (nbytes, muls, run, run_plain) in work.items():
+        b_ms, b_by = bound(nbytes, muls)
+        out.append({"kernel": name, "n": n, "nl": nl, "k": k, "B": B,
+                    "shape": shape, "half_dim": half_dim,
+                    "max_abs_err": errs[name],
+                    "ms": cuda_ms(run, reps, inner=10),
+                    "plain_ms": cuda_ms(run_plain, 3, 1),
+                    "bound_ms": b_ms, "bound_by": b_by})
+    out.append({"kernel": "mod_down", "n": n, "nl": nl, "k": k, "B": B,
+                "shape": shape, "half_dim": half_dim,
+                "max_abs_err": errs["mod_down"],
+                "k5_ms": sum(r["ms"] for r in out),
+                "k5_bound_ms": sum(r["bound_ms"] for r in out),
+                "ms": cuda_ms(lambda: moddown.mod_down_cuda(
+                    x, ctx.ntt, ks, add, half_dim), reps, inner=5),
+                "plain_ms": cuda_ms(lambda: moddown.mod_down_plain(
+                    x, ctx.ntt, ks, add, half_dim), 3, 1)})
+    return out
+
+
 def _ring16_cases(ctx, gen):
     """The kernels at ring 2^16 (linformer-128c), at the shapes of phase
     ring16's batch-2 bootstrap: its mod-raise (K2 on limb 0 read in place,
@@ -586,6 +660,15 @@ def phase_kernels(ctx, tiny, ring16):
                          lead=(2, 8)),
              _ksmac_case(tiny, tiny.num_q, 8, gen, 20),
              _ksmac_case(ring16, 22, 2, gen, 20, gather=True)]
+    # K5: first the per-token cell's most frequent mod-down (level 23, 8
+    # ciphertexts' two halves, a c0 addend; the censuses of
+    # port_bench/cells/), then level 22, the packed cells' level 10 and
+    # their combos' level 24 (16 groups of 2 and of 6 halves, halves on
+    # axis 1), and the bootstrap's level 57 at batch 16
+    for nl, lead, hd in ((23, (2, 8), 0), (22, (2, 8), 0), (10, (2, 8), 0),
+                         (24, (16, 2, 2), 1), (24, (16, 2, 6), 1),
+                         (57, (2, 16), 0)):
+        rows += _moddown_case(ctx, nl, lead, hd, gen, 20)
     # the CLI phase's ring 2^8 (preset tiny): the one-block-per-row K1/K2
     # on a batch-8 key switch's rows at the top level (59 + 8 limbs, the
     # digit map), the rescale's top limb read in place, and K3's
@@ -860,11 +943,28 @@ def _device_breakdown(run):
 def _shape_census():
     """Records each kernel wrapper's calls by shape, in order, while the
     block runs: K1 by (rows, limb-map entries), K2 by (rows, limbs), K3 by
-    (batch, g_valid, nd, tgt, prefolded).  Yields {kernel: [shape, ...]}."""
-    from fhe_linformer_tpu_torch.ops import basecvt, ntt_cuda
+    (batch, g_valid, nd, tgt, prefolded), K5's entries by (batch, rows)
+    and md_finish by (batch, nl, addends).  Yields {kernel: [shape,
+    ...]}."""
+    from fhe_linformer_tpu_torch.ops import basecvt, moddown, ntt_cuda
     from fhe_linformer_tpu_torch.ops.ntt import is_limb_map
     seen = {k: [] for k in KERNELS}
     orig = (ntt_cuda.fwd, ntt_cuda.inv, basecvt.base_convert_cuda)
+    k5 = (moddown.md_fold, moddown.md_lift, moddown._finish)
+    rows = lambda x: (x.numel() // (x.shape[-2] * x.shape[-1]), x.shape[-2])
+
+    def fold(vp, ks):
+        seen["md_fold"].append(rows(vp))
+        return k5[0](vp, ks)
+
+    def lift(y, v, ks):
+        seen["md_lift"].append(rows(y))
+        return k5[1](y, v, ks)
+
+    def finish(x, y_e, ks, args):
+        seen["md_finish"].append(rows(y_e) + (
+            sum(a is not None for a in args[3]),))
+        return k5[2](x, y_e, ks, args)
 
     def fwd(x, t, limbs):
         seen["ntt_fwd"].append((x.numel() // t.n,
@@ -882,10 +982,12 @@ def _shape_census():
         return orig[2](x, tables, prefolded)
 
     ntt_cuda.fwd, ntt_cuda.inv, basecvt.base_convert_cuda = fwd, inv, bc
+    moddown.md_fold, moddown.md_lift, moddown._finish = fold, lift, finish
     try:
         yield seen
     finally:
         ntt_cuda.fwd, ntt_cuda.inv, basecvt.base_convert_cuda = orig
+        moddown.md_fold, moddown.md_lift, moddown._finish = k5
 
 
 def _by_shape(calls, runs):

@@ -108,6 +108,9 @@ class LevelKS:
     pfold: torch.Tensor       # (k, 1) (P/p_t)^-1 mod p_t
     pinv: torch.Tensor        # (nl, 1) P^-1 mod q_i
     pmod: torch.Tensor        # (nl, 1) P mod q_i
+    pfold_s: torch.Tensor     # Shoup companions floor(w 2^32 / q) of the
+    pinv_s: torch.Tensor      # three (uint32 bits in int32; kernel K5)
+    pmod_s: torch.Tensor
     mdq40: torch.Tensor       # (k, 1) int64 round(2^40 / p_t)
     own: torch.Tensor         # (nl, 1) F_j(t)^-1 mod q_t (own-group skip)
     bc: BCTables              # decomposition Q_l -> Q_l u P
@@ -275,6 +278,10 @@ class Context:
             "mod-down overflow fixed point too coarse for this chain"
         col = lambda v: self.tensor(np.asarray(v, np.int64).reshape(-1, 1)
                                     .astype(np.int32))
+        shoup = lambda v, q: self.tensor(np.ascontiguousarray(
+            shoup_precompute(v, q).reshape(-1, 1)).view(np.int32))
+        pinv = [pow(P % q, q - 2, q) for q in qs_act]
+        pmod = [P % q for q in qs_act]
         act_idx = self.limb_idx(nl)
         sp_idx = tuple(range(self.num_q, self.num_q + self.k_sp))
         lk = LevelKS(
@@ -282,9 +289,9 @@ class Context:
             groups=tuple(groups), dig_limbs=tuple(dig_limbs),
             q_act=self.mod(act_idx), q_tgt=self.mod(tgt_idx),
             q_sp=self.mod(sp_idx),
-            pfold=col(pfold),
-            pinv=col([pow(P % q, q - 2, q) for q in qs_act]),
-            pmod=col([P % q for q in qs_act]),
+            pfold=col(pfold), pinv=col(pinv), pmod=col(pmod),
+            pfold_s=shoup(pfold, self.ps), pinv_s=shoup(pinv, qs_act),
+            pmod_s=shoup(pmod, qs_act),
             mdq40=self.tensor(mdq40),
             own=col(own),
             bc=bc, md=md)

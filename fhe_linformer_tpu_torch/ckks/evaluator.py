@@ -18,9 +18,11 @@ Every key switch funnels through `_galois_many` or `_relin`: inverse NTT
 of the input (kernel K2), digit decomposition by fused base conversion
 (K3) and forward NTT of the digit rows (K1), the key inner products
 (`_inner_ext`, kernel K4 `ks_mac`, which reads each key's own rows:
-full-basis or reduced-basis, KSKey.max_nl), then the mod-down (K2, K3
-prefolded, K1).  A hoisted rotation hands K4 its Galois permutation, which
-it reads in place; the rotation combo's plaintext sums run on K4 too.
+full-basis or reduced-basis, KSKey.max_nl), then the mod-down
+(`ops/moddown.py`: K2, kernel K5's fold, K3 prefolded, K5's lift, K1 and
+K5's finish, which adds the caller's c0 or d0 / d1 terms in the same
+pass).  A hoisted rotation hands K4 its Galois permutation, which it reads
+in place; the rotation combo's plaintext sums run on K4 too.
 """
 
 from __future__ import annotations
@@ -32,6 +34,7 @@ from ..io.native import crt_lift_center
 from ..ops import ntt
 from ..ops.basecvt import base_convert
 from ..ops.ksmac import ks_mac
+from ..ops.moddown import mod_down
 from ..ops.modarith import addmod, mulmod, negmod, submod
 from ..ops.ntt import NttTables
 from ..utils.timing import GLOBAL_TIMERS as _COUNTS
@@ -719,8 +722,8 @@ class Evaluator:
             perm = self._perm(r)
             c0ps.append(ct.c0.index_select(-1, perm))
             _inner_ext(ctx, y_e, self._rot_key(r), ks, perm, out=acc[:, i])
-        k = _mod_down(ctx, acc, ks)                       # (2, S, ..., nl, N)
-        return ct.with_data(addmod(torch.stack(c0ps), k[0], ks.q_act), k[1])
+        k = _mod_down(ctx, acc, ks, add=(torch.stack(c0ps), None))
+        return ct.with_data(k[0], k[1])                 # (S, ..., nl, N) each
 
     def multi_rotate_sum(self, cts: Ciphertext, shifts) -> Ciphertext:
         """sum_g rotate(cts[g], shifts[g]); shift-0 entries skip the switch
@@ -876,9 +879,8 @@ class Evaluator:
             a0q, a01 = self._stage2_sums(
                 stage1, list(range(len(rot_items))),
                 [p for _, p in rot_items], ks)
-            k = _mod_down(self.ctx, a01, ks)
-            out = Ciphertext(addmod(a0q, k[0], ks.q_act), k[1], nl,
-                             ct.scale * scale)
+            k = _mod_down(self.ctx, a01, ks, add=(a0q, None))
+            out = Ciphertext(k[0], k[1], nl, ct.scale * scale)
         for _, p in id_items:
             pq = self._pt_expand_q(p, ks) if isinstance(p, CoeffPlaintext) \
                 else Plaintext(p.data[..., :nl, :], nl, p.scale)
@@ -941,15 +943,17 @@ class Evaluator:
                 "rotation-combo plaintexts need encode(..., specials=True)"
         return torch.stack([p.data for p in pts])
 
-    def _stage2_sums(self, stage1, idx, pts, ks: LevelKS, out=None):
+    def _stage2_sums(self, stage1, idx, pts, ks: LevelKS, out=None,
+                     out0=None):
         """Plaintext-weighted sums of stage-1 rows `idx` for one giant
-        group: (a0 over Q, the t0 and t1 sums over Q u P stacked), the
-        latter written into `out` (2, ..., nl + k, N) when given."""
+        group: (a0 over Q, the t0 and t1 sums over Q u P stacked), written
+        into `out0` (..., nl, N) and `out` (2, ..., nl + k, N) when
+        given."""
         c0ps, t01 = stage1
         pt = (self._ext_rows(pts, ks),)           # (R, nl + k, N) weights
-        return (ks_mac(c0ps, pt, ks.q_act, sel=idx)[0],
-                ks_mac(t01, pt, ks.q_tgt, sel=idx,
-                       out=None if out is None else out[None])[0])
+        wrap = lambda o: None if o is None else o[None]
+        return (ks_mac(c0ps, pt, ks.q_act, sel=idx, out=wrap(out0))[0],
+                ks_mac(t01, pt, ks.q_tgt, sel=idx, out=wrap(out))[0])
 
     def combo_stage2(self, ct: Ciphertext, stage1, items, shifts,
                      ks: LevelKS) -> Ciphertext:
@@ -970,9 +974,8 @@ class Evaluator:
             a0q, a01 = self._stage2_sums(
                 stage1, [pos[r] for r, _ in rot_items],
                 [p for _, p in rot_items], ks)
-            k = _mod_down(self.ctx, a01, ks)
-            out = Ciphertext(addmod(a0q, k[0], ks.q_act), k[1], nl,
-                             ct.scale * scale)
+            k = _mod_down(self.ctx, a01, ks, add=(a0q, None))
+            out = Ciphertext(k[0], k[1], nl, ct.scale * scale)
         for _, p in id_items:
             t = self.mul_plain(ct, self._pt_expand_q(p, ks), rescale=False)
             out = t if out is None else self.add(out, t)
@@ -990,7 +993,8 @@ class Evaluator:
         scale = groups[0][1][0][1].scale
         c0ps, t01 = stage1
         a01 = t01.new_empty((len(groups),) + t01.shape[1:])  # (G, 2, ...)
-        a0qs, id_extra = [], []
+        a0q = c0ps.new_empty((len(groups),) + c0ps.shape[1:])
+        id_extra = []
         n_rot = 0
         for g, (_, items) in enumerate(groups):
             rot = []
@@ -1002,17 +1006,16 @@ class Evaluator:
                     rot.append((r, p))
             n_rot += len(rot)
             if rot:
-                a0qs.append(self._stage2_sums(
-                    stage1, [pos[r] for r, _ in rot], [p for _, p in rot], ks,
-                    out=a01[g])[0])
+                self._stage2_sums(stage1, [pos[r] for r, _ in rot],
+                                  [p for _, p in rot], ks, out=a01[g],
+                                  out0=a0q[g])
             else:
-                a0qs.append(torch.zeros_like(c0ps[0]))
+                a0q[g].zero_()
                 a01[g].zero_()
         _COUNTS.count("combo_rot", n_rot * _nct(ct))
         _COUNTS.count("keyswitch", len(groups) * _nct(ct))      # G mod-downs
-        k = _mod_down(ctx, a01, ks)                   # (G, 2, ..., nl, N)
-        c0 = addmod(torch.stack(a0qs), k[:, 0], ks.q_act)
-        c1 = k[:, 1]                          # each c1[g] contiguous
+        k = _mod_down(ctx, a01, ks, add=(a0q, None), half_dim=1)
+        c0, c1 = k[:, 0], k[:, 1]   # (G, ..., nl, N), each c[g] contiguous
         for g, p in id_extra:
             t = self.mul_plain(ct, self._pt_expand_q(p, ks), rescale=False)
             c0[g] = addmod(c0[g], t.c0, ks.q_act)
@@ -1069,42 +1072,11 @@ def _inner_ext(ctx: Context, y_e, key: KSKey, ks: LevelKS, perm=None,
                   w_off=key.sp_row(ctx, nl) - nl, perm=perm, out=out)
 
 
-def _md_overflow(w, mdq40):
-    """round(sum_t w_t / p_t), the CRT overflow of the fast base conversion
-    P -> Q, in the JAX package's exact fixed point: integer 16-bit partial
-    sums, combined in float32 at the end and rounded half to even."""
-    return _md_round(*_md_partials(w, mdq40))
-
-
-def _md_partials(w, mdq40):
-    """The exact integer partial sums (al, ahbb) of `_md_overflow` over the
-    rows of w; sums over disjoint row sets add (the limb-sharded mod-down
-    all-reduces them before `_md_round`)."""
-    w = w.long()
-    a = (w & 0xFFFF) * mdq40
-    b = (w >> 16) * mdq40
-    return ((a & 0xFFFF).sum(-2, keepdim=True),
-            ((a >> 16) + b).sum(-2, keepdim=True))
-
-
-def _md_round(al, ahbb):
-    """The single float32 combine of the partial sums, rounded half to
-    even."""
-    s = al.float() * (2.0 ** -40) + ahbb.float() * (2.0 ** -24)
-    return torch.round(s).int()
-
-
-def _mod_down(ctx: Context, x, ks: LevelKS):
+def _mod_down(ctx: Context, x, ks: LevelKS, add=None, half_dim: int = 0):
     """(..., nl + k, N) over Q*P -> (..., nl, N) over Q: divide by P,
-    rounded (centered by the overflow correction)."""
-    nl = ks.nl
-    vp = ntt.inv(x[..., nl:, :], ctx.ntt, ks.sp_idx)
-    w = mulmod(vp, ks.pfold, ks.q_sp)
-    v = _md_overflow(w, ks.mdq40)
-    y = base_convert(w, ks.md, prefolded=True)[0]
-    y = submod(y, mulmod(v, ks.pmod, ks.q_act), ks.q_act)
-    y_e = ntt.fwd(y, ctx.ntt, ks.act_idx)
-    return mulmod(submod(x[..., :nl, :], y_e, ks.q_act), ks.pinv, ks.q_act)
+    rounded (centered by the overflow correction), with the key halves on
+    `half_dim` and `add` (add0, add1) added to them (`ops/moddown.py`)."""
+    return mod_down(x, ctx.ntt, ks, add, half_dim)
 
 
 def _galois_many(ctx: Context, c0s, c1s, perms, keys, ks: LevelKS):
@@ -1117,8 +1089,8 @@ def _galois_many(ctx: Context, c0s, c1s, perms, keys, ks: LevelKS):
     acc = y_e.new_empty((2,) + y_e.shape[1:])
     for g, key in enumerate(keys):
         _inner_ext(ctx, y_e[:, g], key, ks, out=acc[:, g])
-    k = _mod_down(ctx, acc, ks)                       # (2, G, ..., nl, N)
-    return addmod(r0, k[0], ks.q_act), k[1]
+    k = _mod_down(ctx, acc, ks, add=(r0, None))       # (2, G, ..., nl, N)
+    return k[0], k[1]
 
 
 def _galois_core(ctx: Context, c0, c1, perm, key: KSKey, ks: LevelKS):
@@ -1126,9 +1098,11 @@ def _galois_core(ctx: Context, c0, c1, perm, key: KSKey, ks: LevelKS):
     return o0[0], o1[0]
 
 
-def _relin(ctx: Context, d2, relin: KSKey, ks: LevelKS):
+def _relin(ctx: Context, d2, relin: KSKey, ks: LevelKS, add=None):
+    """The relinearization key switch of d2, `add` (d0, d1) added to its
+    halves in the mod-down's last pass."""
     y_e = _hoist_decompose(ctx, d2, ks)
-    k = _mod_down(ctx, _inner_ext(ctx, y_e, relin, ks), ks)
+    k = _mod_down(ctx, _inner_ext(ctx, y_e, relin, ks), ks, add=add)
     return k[0], k[1]
 
 
@@ -1136,8 +1110,7 @@ def _mul_relin_core(ctx: Context, a0, a1, b0, b1, relin: KSKey, ks: LevelKS):
     q = ks.q_act
     d0 = mulmod(a0, b0, q)
     d1 = addmod(mulmod(a0, b1, q), mulmod(a1, b0, q), q)
-    k0, k1 = _relin(ctx, mulmod(a1, b1, q), relin, ks)
-    return addmod(d0, k0, q), addmod(d1, k1, q)
+    return _relin(ctx, mulmod(a1, b1, q), relin, ks, add=(d0, d1))
 
 
 def _mul2_tail(ctx: Context, a0, a1, b0, b1, relin: KSKey, ks: LevelKS):

@@ -17,8 +17,8 @@ ciphertext (special rows zero):
   5. the mod-down P -> Q: K2 of the local special rows, the local partial
      conversion by K3 and a second reduce-scatter, the overflow
      estimate's integer partial sums all-reduced before its one float32
-     combine (`ckks.evaluator._md_partials` / `_md_round`, shared with the
-     single-process mod-down), K1, subtract, multiply by P^-1
+     combine (`ops.moddown.md_partials` / `md_round`, the single-process
+     mod-down's plain route), K1, subtract, multiply by P^-1
 
 The partial residues are canonical (< p), and the JAX package splits them
 into 16-bit u32 planes for its lazy u32 psum; the port sums them in int64
@@ -43,10 +43,10 @@ import torch
 
 from ..ckks.ciphertext import Ciphertext
 from ..ckks.context import BCTables, Context
-from ..ckks.evaluator import _md_partials, _md_round
 from ..ops import ntt
 from ..ops.basecvt import base_convert
 from ..ops.modarith import addmod, mulmod, submod
+from ..ops.moddown import md_partials, md_round
 
 
 @dataclass(frozen=True)
@@ -218,11 +218,11 @@ def sharded_mod_down(ctx: Context, rk: RankKS, comm, acc, radd=None):
     else:
         w = mulmod(ntt.inv(acc[rk.sp0:], ctx.ntt, rk.limbs[rk.sp0:]),
                    rk.pfold, rk.q[rk.sp0:])
-        al, ahbb = _md_partials(w, rk.mdq40)
+        al, ahbb = md_partials(w, rk.mdq40)
         part = torch.cat([base_convert(w, rk.md, prefolded=True)[0].long(),
                           z(plan.k_sp, n)])
     ov = comm.all_reduce(torch.stack([al, ahbb]))
-    v = _md_round(ov[0], ov[1])
+    v = md_round(ov[0], ov[1])
     yq = torch.remainder(comm.reduce_scatter(part, 0), rk.q).int()
     yq = submod(yq, mulmod(v, rk.pmod, rk.q), rk.q)   # pmod 0 on specials
     y_e = ntt.fwd(yq, ctx.ntt, rk.limbs)

@@ -5,10 +5,11 @@
 per-head scores (`head_scores`) and value mix (`head_mix`), on the host's
 clock with no synchronize.  `GLOBAL_TIMERS.counts` counts the
 per-primitive work the evaluator does (`keyswitch`, `combo_rot`,
-`rescale`, ...), the d x d block products of the block-major matmuls by
-ciphertext (`block_matmul`), the residue rows made from coefficient
-plaintexts for the rotation combo (`pt_rows`) and the ciphertexts the
-bootstrap refreshes (`bootstrap`).  `KERNEL_LAUNCHES` counts each CUDA kernel's
+`rescale`, ...), the calls of the kernel wrappers K4 and K5 on either
+route (`ks_mac`, `mod_down`), the d x d block products of the block-major
+matmuls by ciphertext (`block_matmul`), the residue rows made from
+coefficient plaintexts for the rotation combo (`pt_rows`) and the
+ciphertexts the bootstrap refreshes (`bootstrap`).  `KERNEL_LAUNCHES` counts each CUDA kernel's
 launches: a wrapper adds one where it launches its kernel and nowhere else,
 so a run can show that its main path went through the kernels.
 `COLLECTIVE_BYTES` counts the bytes each rank hands to the collectives of
@@ -56,7 +57,8 @@ GLOBAL_TIMERS = Timers()
 
 # kernel name -> launches; the names are the ones chip_smoke.py reports
 KERNEL_LAUNCHES: dict[str, int] = {"ntt_fwd": 0, "ntt_inv": 0,
-                                   "base_convert": 0, "ks_mac": 0}
+                                   "base_convert": 0, "ks_mac": 0,
+                                   "md_fold": 0, "md_lift": 0, "md_finish": 0}
 
 
 # collective -> bytes of the tensors this process handed to it

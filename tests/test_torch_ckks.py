@@ -20,6 +20,7 @@ from fhe_linformer_tpu_torch.ckks import evaluator as evm
 from fhe_linformer_tpu_torch.ckks.context import CKKSConfig, Context
 from fhe_linformer_tpu_torch.ckks.evaluator import Evaluator
 from fhe_linformer_tpu_torch.ckks.keys import generate_keys
+from fhe_linformer_tpu_torch.ops import moddown
 
 PARAMS = dict(n=1 << 11, scale_bits=26, num_scaling=7, dnum=3, seed=31,
               secret_hw=32)
@@ -211,7 +212,7 @@ def test_mod_down_bit_exact(env, nl):
     w = np.stack([rng.integers(0, p, ctx.cfg.n, dtype=np.uint32)
                   for p in ctx.ps])
     np.testing.assert_array_equal(
-        _u32(evm._md_overflow(torch.from_numpy(w.astype(np.int32)),
+        _u32(moddown.md_overflow(torch.from_numpy(w.astype(np.int32)),
                               ctx.ks_tables(nl).mdq40)),
         np.asarray(jevm._md_overflow(jnp.asarray(w), jks.mdq40)))
 
