@@ -92,7 +92,8 @@ Phases, each printing one JSON line:
                 through host buffers (the kernels are built before any
                 rank starts): the limb-sharded Galois switch and rotation
                 combo at ring 2^15 (24 + 8 rows, 8 per rank on 4 ranks)
-                through Evaluator.rotate / rotate_combo, equal to each
+                through MeshEvaluator.rotate / rotate_combo (K4 and
+                K5's lift and finish on each rank), equal to each
                 rank's single-process switch, with ms and collective bytes
                 per switch and each rank's keyswitch_sharded count; the
                 attention step on a 2 x 2 mesh against the plain NTT; then
@@ -139,8 +140,8 @@ INT_MUL_PER_CLOCK_PER_SM = 64
 PORT = "fhe_linformer_tpu_torch"
 KERNELS = ("ntt_fwd", "ntt_inv", "base_convert", "ks_mac", "md_fold",
            "md_lift", "md_finish")
-# the limb-sharded key switch has its own inner product (parallel/ksprod.py)
-SHARDED_KERNELS = ("ntt_fwd", "ntt_inv", "base_convert")
+SHARDED_KERNELS = ("ntt_fwd", "ntt_inv", "base_convert", "ks_mac", "md_lift",
+                   "md_finish")
 REFERENCE = PORT.removesuffix("_torch")      # the JAX package the port mirrors
 REPLACES = {"ntt_fwd": f"{REFERENCE}/ops/ntt_pallas.py:195",
             "ntt_inv": f"{REFERENCE}/ops/ntt_pallas.py:199",
@@ -2003,19 +2004,22 @@ def _parallel_cases(gen):
             _bc_case(r3.md, r3.md.alpha, 1, True, gen, 20)]
 
 
-def _dp_make(keys, w, params, bootcfg, boot_chunk, packed):
+def _dp_make(keys, w, params, bootcfg, boot_chunk, packed, mesh=None):
     """A dp rank's circuit and bootstrapper on the card (the `make` of
-    parallel.circuit.run_forward): linformer-boot-w's context and the
-    parent's keys (shared through CUDA IPC), phase 6's packed circuit with
-    batch_chunks or phase 7's per-token circuit."""
+    parallel.circuit.run_forward; on a MeshEvaluator over `mesh` when
+    given): linformer-boot-w's context and the parent's keys (shared
+    through CUDA IPC), phase 6's packed circuit with batch_chunks or phase
+    7's per-token circuit."""
     from fhe_linformer_tpu_torch.boot.bootstrap import Bootstrapper
     from fhe_linformer_tpu_torch.ckks.context import Context
     from fhe_linformer_tpu_torch.ckks.evaluator import Evaluator
     from fhe_linformer_tpu_torch.config import get
     from fhe_linformer_tpu_torch.models.circuit import EncryptedLinformer
     from fhe_linformer_tpu_torch.models.circuit_packed import PackedLinformer
-    ev = Evaluator(Context(get("linformer-boot-w").ckks,
-                           keys.pk.p0.device), keys)
+    from fhe_linformer_tpu_torch.parallel.mesh_evaluator import MeshEvaluator
+    ctx = Context(get("linformer-boot-w").ckks, keys.pk.p0.device)
+    ev = Evaluator(ctx, keys) if mesh is None else \
+        MeshEvaluator(ctx, keys, mesh)
     booter = Bootstrapper(ev, bootcfg, chunk=boot_chunk)
     circ = PackedLinformer(ev, w, params, bs=16, batch_chunks=True) \
         if packed else EncryptedLinformer(ev, w, params)
@@ -2069,9 +2073,9 @@ def _add_rank_launches(launches, res, what, kernels=KERNELS):
 
 def _parallel_keyswitch(launches):
     """Step 1: the limb-sharded Galois switch and combo (shifts 1, 2, 3) at
-    ring 2^15 on 4 ranks, through Evaluator.rotate / rotate_combo, and the
-    attention step on a 2 x 2 mesh; every rank holds its result to its own
-    single-process switch on the card."""
+    ring 2^15 on 4 ranks, through MeshEvaluator.rotate / rotate_combo, and
+    the attention step on a 2 x 2 mesh; every rank holds its result to its
+    own single-process switch on the card."""
     from fhe_linformer_tpu_torch.ops import ntt
     from fhe_linformer_tpu_torch.ops.ntt import NttTables
     from fhe_linformer_tpu_torch.parallel.dryrun import dryrun_worker

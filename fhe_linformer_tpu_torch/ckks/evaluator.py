@@ -6,13 +6,8 @@ The counterpart of the JAX package's `ckks/evaluator.py`, computing what
 its jitted cores compute (each returns canonical residues, so results are
 bit-identical given the same inputs).  Running scale lives on the host
 wrapper.  Batched ops (key switches, products, rescales) process at most
-`heavy_chunk` ciphertexts at a time (the fused Chebyshev nodes
-`fused_chunk`) to bound their intermediates (the key switch's ~12x the
-ciphertext volume).  With `enable_sharded_ks`, an unbatched Galois key
-switch or rotation combo runs limb-sharded over a mesh
-(`parallel/ksprod.py`); with `enable_dp`, each batched key-switching op
-runs its share of the batch on this rank of a dp mesh
-(`parallel/circuit.py`).
+`heavy_chunk` ciphertexts at a time to bound their intermediates (the key
+switch's ~12x the ciphertext volume).
 
 Every key switch funnels through `_galois_many` or `_relin`: inverse NTT
 of the input (kernel K2), digit decomposition by fused base conversion
@@ -46,7 +41,23 @@ from .keys import KeySet, KSKey
 
 def _nct(ct: Ciphertext) -> int:
     """Ciphertext count of a batched ct."""
-    return int(np.prod(ct.c0.shape[:-2], dtype=np.int64))
+    return _count(ct.c0.shape[:-2])
+
+
+def _count(shape) -> int:
+    return int(np.prod(shape, dtype=np.int64))
+
+
+def _flat(arrays, shape) -> list:
+    """The operands broadcast to the batch `shape` and flattened to one
+    batch axis."""
+    return [a.expand(shape + a.shape[-2:]).reshape((_count(shape),)
+                                                    + a.shape[-2:])
+            for a in arrays]
+
+
+def _unflat(outs, shape) -> tuple:
+    return tuple(o.reshape(shape + o.shape[-2:]) for o in outs)
 
 
 def _run_chunks(core, flat, chunk: int):
@@ -69,15 +80,11 @@ def _run_chunks(core, flat, chunk: int):
 
 
 class Evaluator:
-    """`heavy_chunk`: ciphertexts per key-switching call; `fused_chunk`:
-    the same for the fused Chebyshev nodes (None: heavy_chunk)."""
+    heavy_chunk = 8             # ciphertexts per batched key-switching call
 
-    def __init__(self, ctx: Context, keys: KeySet, heavy_chunk: int = 8,
-                 fused_chunk: int | None = None):
+    def __init__(self, ctx: Context, keys: KeySet):
         self.ctx = ctx
         self.keys = keys
-        self.heavy_chunk = heavy_chunk
-        self.fused_chunk = fused_chunk or heavy_chunk
         self.encoder = Encoder(ctx.cfg.n)
         self._enc_rng = np.random.default_rng(ctx.cfg.seed ^ 0x5EED)
         self._enc_cache: dict = {}
@@ -85,9 +92,6 @@ class Evaluator:
         self._sk_host: torch.Tensor | None = None
         self._baby_stack = None
         self._slotdec_cache: dict = {}
-        self._shard_mesh = None
-        self._shard_ks: dict = {}
-        self._dp = None
 
     def prefetch_host_sk(self) -> None:
         """Keep a host copy of the secret key's eval-domain residues, so
@@ -461,52 +465,24 @@ class Evaluator:
             (ct.c0, ct.c1), keyswitches=0)
         return Ciphertext(c0, c1, nl - 1, ct.scale / float(self.ctx.qs[nl - 1]))
 
-    def _batched(self, core, arrays, chunk: int | None = None,
-                 keyswitches: int = 1):
-        """core(*arrays) over chunks of at most `chunk` (heavy_chunk)
-        ciphertexts of the broadcast leading batch (operands are broadcast
-        first), so a large batch never holds the whole batch's
-        temporaries.  `keyswitches`: the key switches core runs per
-        ciphertext, counted here for the ciphertexts this process runs.
-        Under enable_dp a key-switching op (keyswitches > 0) whose batch
-        gives every dp rank at least one ciphertext is cut into one
-        contiguous block per rank: this rank runs its block and the blocks
-        are all-gathered, so every rank returns the whole result (each
-        ciphertext's ops are independent of the others', so it equals the
-        single-process result bit for bit).  An op without a key switch
-        runs its chunks on every rank: gathering its output would cost more
-        than computing it."""
-        chunk = chunk or self.heavy_chunk
+    def _batched(self, core, arrays, keyswitches: int = 1):
+        """core(*arrays) over the broadcast leading batch of its operands
+        (`_run`).  `keyswitches`: the key switches core runs per
+        ciphertext."""
         shape = torch.broadcast_shapes(*(a.shape[:-2] for a in arrays))
-        count = int(np.prod(shape, dtype=np.int64))
-        dp = self._dp
-        per = count if dp is None else -(-count // dp.size)
-        if dp is None or keyswitches == 0 or (dp.size - 1) * per >= count:
-            _COUNTS.count("keyswitch", keyswitches * count)
-            # a key-switching core takes one batch axis, the others any
-            if count <= chunk and (len(shape) <= 1 or keyswitches == 0):
-                return core(*arrays)
-            flat = [a.expand(shape + a.shape[-2:])
-                    .reshape((count,) + a.shape[-2:]) for a in arrays]
-            return tuple(o.reshape(shape + o.shape[-2:])
-                         for o in _run_chunks(core, flat, chunk))
-        lo, hi = dp.rank * per, min((dp.rank + 1) * per, count)
-        _COUNTS.count("keyswitch", keyswitches * (hi - lo))
-        flat = [a.expand(shape + a.shape[-2:])
-                .reshape((count,) + a.shape[-2:])[lo:hi] for a in arrays]
-        outs = torch.stack(_run_chunks(core, flat, chunk))    # (k, hi-lo, ...)
-        if hi - lo < per:
-            outs = torch.cat([outs, outs.new_zeros(
-                (outs.shape[0], per - (hi - lo)) + outs.shape[2:])], 1)
-        full = dp.all_gather(outs, 1)[:, :count]
-        return tuple(o.reshape(shape + o.shape[-2:]) for o in full)
+        return self._run(core, arrays, shape, keyswitches)
 
-    def enable_dp(self, mesh) -> None:
-        """Run the heavy batched ops (ct x ct products, the Chebyshev nodes,
-        Galois key switches, accumulated rotations) split over `mesh`'s dp
-        axis (None: off).  Every rank must run the same ops on the same
-        (replicated) ciphertexts."""
-        self._dp = None if mesh is None else mesh.comms["dp"]
+    def _run(self, core, arrays, shape, keyswitches: int):
+        """core over chunks of at most heavy_chunk ciphertexts of the batch
+        `shape` (operands broadcast to it first), so a large batch never
+        holds the whole batch's temporaries; counts the key switches it
+        runs."""
+        count, chunk = _count(shape), self.heavy_chunk
+        _COUNTS.count("keyswitch", keyswitches * count)
+        # a key-switching core takes one batch axis, the others any
+        if count <= chunk and (len(shape) <= 1 or keyswitches == 0):
+            return core(*arrays)
+        return _unflat(_run_chunks(core, _flat(arrays, shape), chunk), shape)
 
     def mul(self, a: Ciphertext, b: Ciphertext,
             rescale: bool = True) -> Ciphertext:
@@ -569,8 +545,7 @@ class Evaluator:
             f0, f1 = _rescale_body(ctx, mulmod(e0, vc, qc),
                                    mulmod(e1, vc, qc), plan_c)
             return submod(c0, f0, plan_c.qrem), submod(c1, f1, plan_c.qrem)
-        c0, c1 = self._batched(core, (a.c0, a.c1, b.c0, b.c1, c.c0, c.c1),
-                               self.fused_chunk)
+        c0, c1 = self._batched(core, (a.c0, a.c1, b.c0, b.c1, c.c0, c.c1))
         return Ciphertext(c0, c1, nl_out, s_out)
 
     def square_double_minus_one(self, a: Ciphertext,
@@ -603,7 +578,7 @@ class Evaluator:
             for plan in plans:
                 c0, c1 = _rescale_body(ctx, c0, c1, plan)
             return addmod(c0, m1, plans[-1].qrem), c1
-        c0, c1 = self._batched(core, (a.c0, a.c1), self.fused_chunk)
+        c0, c1 = self._batched(core, (a.c0, a.c1))
         return Ciphertext(c0, c1, nl_out, s_out)
 
     # ------------------------------------------------------------------
@@ -646,9 +621,6 @@ class Evaluator:
 
     def _galois(self, ct: Ciphertext, perm, key: KSKey) -> Ciphertext:
         _COUNTS.count("rotation", _nct(ct))
-        out = self._galois_sharded(ct, perm, key)
-        if out is not None:
-            return out
         ks = self.ctx.ks_tables(ct.nl)
         c0, c1 = self._batched(
             lambda a0, a1: _galois_core(self.ctx, a0, a1, perm, key, ks),
@@ -780,113 +752,17 @@ class Evaluator:
         items: [(shift, plaintext)], the plaintexts CoeffPlaintexts or
         encode(..., specials=True) eval plaintexts at a common scale.
         Returns the un-rescaled sum at scale ct.scale * pt.scale."""
-        out = self._combo_sharded(ct, items)
-        if out is not None:
-            return out
         ks = self.ctx.ks_tables(ct.nl)
         return self.combo_from_decomp(ct, _hoist_decompose(self.ctx, ct.c1, ks),
                                       items, ks)
 
-    # ------------------------------------------------------------------
-    # the limb-sharded key switch (parallel/ksprod.py)
-    # ------------------------------------------------------------------
-
-    def enable_sharded_ks(self, mesh) -> None:
-        """Route Galois key switches and rotation combos through the
-        limb-sharded key switch over `mesh`'s limb axis (None: off).  Every
-        rank of the limb axis must run the same ops on the same (replicated)
-        ciphertexts.  The JAX package's conditions apply: an unbatched
-        ciphertext, an extended basis (nl + k) that divides the limb axis,
-        full-basis keys, coefficient plaintexts and no identity term; any
-        other switch runs on this process alone, as there."""
-        self._shard_mesh = mesh
-        self._shard_ks = {}
-
-    def _rank_ks(self, nl: int):
-        from ..parallel.ksprod import build_sharded_ks, rank_tables
-        if nl not in self._shard_ks:
-            mesh = self._shard_mesh
-            self._shard_ks[nl] = rank_tables(
-                self.ctx, build_sharded_ks(self.ctx, nl, mesh.shape["limb"]),
-                mesh.coords["limb"])
-        return self._shard_ks[nl]
-
-    def _shardable(self, ct: Ciphertext) -> bool:
-        return self._shard_mesh is not None and ct.c0.dim() == 2 and \
-            (ct.nl + self.ctx.k_sp) % self._shard_mesh.shape["limb"] == 0
-
-    def _galois_sharded(self, ct: Ciphertext, perm, key: KSKey):
-        """One unbatched Galois key switch on the limb mesh, or None when
-        it cannot ride it."""
-        if not self._shardable(ct) or key.max_nl is not None:
-            return None
-        from ..parallel.ksprod import ext_block, gather_rows, sharded_galois
-        rk = self._rank_ks(ct.nl)
-        comm = self._shard_mesh.comms["limb"]
-        _COUNTS.count("keyswitch")
-        _COUNTS.count("keyswitch_sharded")
-        o0, o1 = sharded_galois(
-            self.ctx, rk, comm, ext_block(rk, ct.c0), ext_block(rk, ct.c1),
-            perm, key.b.index_select(1, rk.key_rows),
-            key.a.index_select(1, rk.key_rows))
-        return gather_rows(rk, comm, o0, o1, ct.scale)
-
-    def _combo_sharded(self, ct: Ciphertext, items):
-        """rotate_combo on the limb mesh, or None when the ciphertext or the
-        items cannot ride it (coefficient plaintexts at one scale, no
-        identity term, full-basis keys)."""
-        if not self._shardable(ct) or self.keys is None:
-            return None
-        slots = self.ctx.cfg.slots
-        if not all(isinstance(p, CoeffPlaintext) and r % slots != 0
-                   for r, p in items):
-            return None
-        keys = [self._rot_key(r) for r, _ in items]
-        if any(k.max_nl is not None for k in keys):
-            return None
-        from ..parallel.ksprod import ext_block, gather_rows, sharded_combo
-        scale = items[0][1].scale
-        for _, p in items:
-            assert abs(p.scale / scale - 1.0) < 1e-12
-        _COUNTS.count("combo_rot", len(items))
-        _COUNTS.count("keyswitch")
-        _COUNTS.count("keyswitch_sharded")
-        rk = self._rank_ks(ct.nl)
-        comm = self._shard_mesh.comms["limb"]
-        o0, o1 = sharded_combo(
-            self.ctx, rk, comm, ext_block(rk, ct.c0), ext_block(rk, ct.c1),
-            [self._perm(r) for r, _ in items],
-            [k.b.index_select(1, rk.key_rows) for k in keys],
-            [k.a.index_select(1, rk.key_rows) for k in keys],
-            torch.stack([p.coeffs for _, p in items]))
-        return gather_rows(rk, comm, o0, o1, ct.scale * scale)
-
     def combo_from_decomp(self, ct: Ciphertext, y_e, items,
                           ks: LevelKS) -> Ciphertext:
         """rotate_combo with a caller-held decomposition y_e of ct.c1."""
-        nl = ct.nl
         slots = self.ctx.cfg.slots
-        rot_items = [(r, p) for r, p in items if r % slots != 0]
-        id_items = [(r, p) for r, p in items if r % slots == 0]
-        scale = items[0][1].scale
-        out = None
-        if rot_items:
-            _COUNTS.count("combo_rot", len(rot_items) * _nct(ct))
-            _COUNTS.count("keyswitch", _nct(ct))         # the one mod-down
-            for _, p in rot_items:
-                assert abs(p.scale / scale - 1.0) < 1e-12
-            stage1 = self.combo_stage1(ct, y_e, [r for r, _ in rot_items], ks)
-            a0q, a01 = self._stage2_sums(
-                stage1, list(range(len(rot_items))),
-                [p for _, p in rot_items], ks)
-            k = _mod_down(self.ctx, a01, ks, add=(a0q, None))
-            out = Ciphertext(k[0], k[1], nl, ct.scale * scale)
-        for _, p in id_items:
-            pq = self._pt_expand_q(p, ks) if isinstance(p, CoeffPlaintext) \
-                else Plaintext(p.data[..., :nl, :], nl, p.scale)
-            t = self.mul_plain(ct, pq, rescale=False)
-            out = t if out is None else self.add(out, t)
-        return out
+        shifts = [r for r, _ in items if r % slots != 0]
+        stage1 = self.combo_stage1(ct, y_e, shifts, ks) if shifts else None
+        return self.combo_stage2(ct, stage1, items, shifts, ks)
 
     def baby_key_stack(self, shifts, nl: int):
         """(kb, ka): the rotation keys of `shifts` stacked, each (ndig,
@@ -955,69 +831,59 @@ class Evaluator:
         return (ks_mac(c0ps, pt, ks.q_act, sel=idx, out=wrap(out0))[0],
                 ks_mac(t01, pt, ks.q_tgt, sel=idx, out=wrap(out))[0])
 
+    def _pt_q(self, p, ks: LevelKS) -> Plaintext:
+        """A combo plaintext's eval rows over the active Q basis."""
+        if isinstance(p, CoeffPlaintext):
+            return self._pt_expand_q(p, ks)
+        return Plaintext(p.data[..., :ks.nl, :], ks.nl, p.scale)
+
     def combo_stage2(self, ct: Ciphertext, stage1, items, shifts,
                      ks: LevelKS) -> Ciphertext:
         """One giant group's accumulation over stage-1 rows + a single lazy
-        mod-down.  items: (shift, CoeffPlaintext)."""
-        nl = ct.nl
-        slots = self.ctx.cfg.slots
-        pos = {r: i for i, r in enumerate(shifts)}
-        rot_items = [(r, p) for r, p in items if r % slots != 0]
-        id_items = [(r, p) for r, p in items if r % slots == 0]
-        scale = items[0][1].scale
-        out = None
-        if rot_items:
-            _COUNTS.count("combo_rot", len(rot_items) * _nct(ct))
-            _COUNTS.count("keyswitch", _nct(ct))
-            for _, p in rot_items:
-                assert abs(p.scale / scale - 1.0) < 1e-12
-            a0q, a01 = self._stage2_sums(
-                stage1, [pos[r] for r, _ in rot_items],
-                [p for _, p in rot_items], ks)
-            k = _mod_down(self.ctx, a01, ks, add=(a0q, None))
-            out = Ciphertext(k[0], k[1], nl, ct.scale * scale)
-        for _, p in id_items:
-            t = self.mul_plain(ct, self._pt_expand_q(p, ks), rescale=False)
-            out = t if out is None else self.add(out, t)
-        return out
+        mod-down (combo_stage2_all over one group)."""
+        _, out = self.combo_stage2_all(ct, stage1, [(0, items)], shifts, ks)
+        return out.with_data(out.c0[0], out.c1[0])
 
     def combo_stage2_all(self, ct: Ciphertext, stage1, groups, shifts,
                          ks: LevelKS):
         """Every giant group's accumulation and ONE batched mod-down.
-        groups: list of (giant_shift, [(baby_shift, CoeffPlaintext)]);
-        identity-baby terms fold in after the mod-down.  Returns
-        (giant_shifts, Ciphertext with a leading group axis)."""
+        groups: list of (giant_shift, [(baby_shift, plaintext)]), the
+        plaintexts as for rotate_combo, at one scale; `shifts`: the baby
+        shift of each stage-1 row.  Identity-baby terms fold in after the
+        mod-down; without a rotated term in any group no mod-down runs.
+        Returns (giant_shifts, Ciphertext with a leading group axis)."""
         ctx = self.ctx
         slots = ctx.cfg.slots
         pos = {r: i for i, r in enumerate(shifts)}
         scale = groups[0][1][0][1].scale
-        c0ps, t01 = stage1
-        a01 = t01.new_empty((len(groups),) + t01.shape[1:])  # (G, 2, ...)
-        a0q = c0ps.new_empty((len(groups),) + c0ps.shape[1:])
-        id_extra = []
-        n_rot = 0
+        rots, id_extra = [], []
         for g, (_, items) in enumerate(groups):
-            rot = []
             for r, p in items:
                 assert abs(p.scale / scale - 1.0) < 1e-12
-                if r % slots == 0:
-                    id_extra.append((g, p))
+            rots.append([(r, p) for r, p in items if r % slots != 0])
+            id_extra += [(g, p) for r, p in items if r % slots == 0]
+        n_rot = sum(len(rot) for rot in rots)
+        if n_rot:
+            c0ps, t01 = stage1
+            a01 = t01.new_empty((len(groups),) + t01.shape[1:])  # (G, 2, ...)
+            a0q = c0ps.new_empty((len(groups),) + c0ps.shape[1:])
+            for g, rot in enumerate(rots):
+                if rot:
+                    self._stage2_sums(stage1, [pos[r] for r, _ in rot],
+                                      [p for _, p in rot], ks, out=a01[g],
+                                      out0=a0q[g])
                 else:
-                    rot.append((r, p))
-            n_rot += len(rot)
-            if rot:
-                self._stage2_sums(stage1, [pos[r] for r, _ in rot],
-                                  [p for _, p in rot], ks, out=a01[g],
-                                  out0=a0q[g])
-            else:
-                a0q[g].zero_()
-                a01[g].zero_()
-        _COUNTS.count("combo_rot", n_rot * _nct(ct))
-        _COUNTS.count("keyswitch", len(groups) * _nct(ct))      # G mod-downs
-        k = _mod_down(ctx, a01, ks, add=(a0q, None), half_dim=1)
-        c0, c1 = k[:, 0], k[:, 1]   # (G, ..., nl, N), each c[g] contiguous
+                    a0q[g].zero_()
+                    a01[g].zero_()
+            _COUNTS.count("combo_rot", n_rot * _nct(ct))
+            _COUNTS.count("keyswitch", len(groups) * _nct(ct))  # G mod-downs
+            k = _mod_down(ctx, a01, ks, add=(a0q, None), half_dim=1)
+            c0, c1 = k[:, 0], k[:, 1]   # (G, ..., nl, N), each c[g] contiguous
+        else:
+            c0 = ct.c0.new_zeros((len(groups),) + ct.c0.shape)
+            c1 = torch.zeros_like(c0)
         for g, p in id_extra:
-            t = self.mul_plain(ct, self._pt_expand_q(p, ks), rescale=False)
+            t = self.mul_plain(ct, self._pt_q(p, ks), rescale=False)
             c0[g] = addmod(c0[g], t.c0, ks.q_act)
             c1[g] = addmod(c1[g], t.c1, ks.q_act)
         return ([gs for gs, _ in groups],

@@ -2,7 +2,7 @@
 `linalg/packed.py`): slot layouts and masks, rotate-accumulate trees, the
 RE/CR/BSGS matmul families, batched interleave/deinterleave and the
 wrap/unwrap helpers, and the BSGS diagonal transform with its four rescale
-modes, on the double-hoisted combo or on hoisted rotations.
+modes, on the double-hoisted combo.
 
 Layout conventions over slots = nb * d:
   expanded:  slot[d*j + i] = v[j]   (value j fills block j)
@@ -27,15 +27,11 @@ def _log2(x: int) -> int:
 
 
 class PackedOps:
-    """`bsgs_combo`: run bsgs_diag_transform on the double-hoisted rotation
-    combo (True) or on hoisted rotations and per-level plaintexts."""
-
-    def __init__(self, ev: Evaluator, d: int = 128, bsgs_combo: bool = True):
+    def __init__(self, ev: Evaluator, d: int = 128):
         self.ev = ev
         self.d = d
         self.slots = ev.ctx.cfg.slots
         self.nb = self.slots // d
-        self.bsgs_combo = bsgs_combo
 
     def required_rotations(self) -> tuple[int, ...]:
         """Power-of-two shifts (both signs) covering the rotsum/repeat
@@ -231,16 +227,13 @@ class PackedOps:
                             rescale_mode: str | None = None) -> Ciphertext:
         """y_i = sum_k diags[k][i] * x[(i+k) mod slots]: BSGS over a sparse
         diagonal set with offsets decomposed stride-aware as
-        k = stride*(g*bs + j).  On the combo (`bsgs_combo`): the
+        k = stride*(g*bs + j), on the double-hoisted combo: the
         decomposition runs once; stage 1 (per baby permutation + key inner
         products) is shared by every giant group; each group accumulates
         plaintext-weighted rows with one lazy mod-down; giant shifts
         without a dedicated key compose (rotate_any); plaintexts are
         level-independent coefficient vectors, cached per diagonal (keyed
-        by the dict's id; each cache entry holds the dict).  Otherwise the
-        babies are hoisted rotations and each group a sum of plaintext
-        products (eval plaintexts cached per level), rotated by its giant
-        shift.
+        by the dict's id; each cache entry holds the dict).
 
         rescale_mode (double_rescale=True means "double"), with qd, qd2
         the top two primes:
@@ -261,10 +254,8 @@ class PackedOps:
         else:
             scale = scale or ev.ctx.delta
         stride, by_giant = self.by_giant(diags, bs)
-        acc = self._bsgs_combo(ct, diags, by_giant, bs, stride, scale) \
-            if self.bsgs_combo else \
-            self._bsgs_hoisted(ct, diags, by_giant, bs, stride, scale)
-        acc = ev.rescale(acc)
+        acc = ev.rescale(self._bsgs_combo(ct, diags, by_giant, bs, stride,
+                                          scale))
         if mode == "double":
             acc = ev.rescale(acc)
             acc.scale = ct.scale        # exact by construction
@@ -345,23 +336,6 @@ class PackedOps:
         for gshift, items in groups:
             inner = ev.combo_stage2(ct, stage1, items, babies, ks)
             rot = ev.rotate_any(inner, gshift) if gshift else inner
-            acc = rot if acc is None else ev.add(acc, rot)
-        return acc
-
-    def _bsgs_hoisted(self, ct, diags, by_giant, bs, stride, scale):
-        ev = self.ev
-        babies = ev.rotate_hoisted(ct, sorted(
-            {j * stride for js in by_giant.values() for j in js}))
-        acc = None
-        for g, js in sorted(by_giant.items()):
-            inner = None
-            for j, d in sorted(js.items()):
-                dk = np.roll(np.asarray(d), g * bs * stride)
-                pt = ev.encode_cached((id(diags), g, j), dk, nl=ct.nl,
-                                      scale=scale, holds=diags)
-                t = ev.mul_plain(babies[j * stride], pt, rescale=False)
-                inner = t if inner is None else ev.add(inner, t)
-            rot = ev.rotate(inner, g * bs * stride) if g else inner
             acc = rot if acc is None else ev.add(acc, rot)
         return acc
 

@@ -19,10 +19,12 @@ JAX package left these passes to XLA.  A CUDA tensor goes to its entry
 points, a CPU tensor to the plain int64 versions, the evaluator's former
 expressions; both return canonical residues, so they agree bit for bit.
 `GLOBAL_TIMERS.counts["mod_down"]` counts the mod-downs on either route,
-`KERNEL_LAUNCHES` each entry point's launches: on the card
-`counts["mod_down"]` equals the launches of `md_finish`.  The limb-sharded
-mod-down (`parallel/ksprod.py`) all-reduces `md_partials` before
-`md_round` and stays on the plain route.
+`KERNEL_LAUNCHES` each entry point's launches: in one process on the
+card `counts["mod_down"]` equals the launches of `md_finish`.  The
+limb-sharded mod-down (`parallel/ksprod.py`) runs `md_lift` and `md_finish`
+(or their plain versions) over each rank's rows, its `RankKS` standing in
+for the level's tables; its fold stays apart, since it all-reduces the
+`md_partials` of the rank's special rows before `md_round`.
 """
 
 from __future__ import annotations

@@ -7,7 +7,7 @@ dry-run's sizes, as one worker for `mesh.launch`.
     given activations and weights (numpy), returning this rank's block,
     its output and digit sum;
   * "ksprod": the limb-sharded Galois switch and combo on a (1 x world)
-    mesh, each directly and through the evaluator, every result required
+    mesh, each directly and through a MeshEvaluator, every result required
     (inside the rank) to equal the single-process switch bit for bit;
     optional `ct_rot` / `ct_combo` arrays to switch instead of fresh
     encryptions; with the rank's `keyswitch_sharded` count;

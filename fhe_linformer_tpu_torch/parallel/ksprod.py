@@ -13,24 +13,29 @@ ciphertext (special rows zero):
      each rank's partial sum over its own rows, by K3 on tables that hold
      the rank's slice of each digit group (`RankKS.bc`), then ONE
      int64 sum-reduce-scatter into the rank's row block of every digit
-  4. K1 of the rank's digit rows, the key inner products - row-local
-  5. the mod-down P -> Q: K2 of the local special rows, the local partial
-     conversion by K3 and a second reduce-scatter, the overflow
-     estimate's integer partial sums all-reduced before its one float32
-     combine (`ops.moddown.md_partials` / `md_round`, the single-process
-     mod-down's plain route), K1, subtract, multiply by P^-1
+  4. K1 of the rank's digit rows, the key inner products (K4,
+     `ops.ksmac.ks_mac`, as in one process)              - row-local
+  5. the mod-down P -> Q of both key halves at once: K2 of the local
+     special rows, the local partial conversion by K3 and a second
+     reduce-scatter, the overflow estimate's integer partial sums
+     all-reduced before its one float32 combine (`ops.moddown.md_partials`
+     / `md_round`), then the single-process mod-down's lift, K1 and finish
+     (`md_lift` / `md_finish`: K5 on a CUDA tensor) over the rank's rows,
+     which `RankKS` presents as that pass's tables
 
 The partial residues are canonical (< p), and the JAX package splits them
 into 16-bit u32 planes for its lazy u32 psum; the port sums them in int64
 (exact for any practical rank count) and reduces once.  Every step is
 exact modular arithmetic and the overflow's integer sums add over
 disjoint rows, so the result equals the single-process key switch bit for
-bit.  The double-hoisted combo decomposes once, accumulates every
-rotation's inner products and plaintext products locally, and runs one
-mod-down pair.
+bit.  The double-hoisted combo decomposes once, builds the rotations'
+inner products through the Galois permutation in place and their
+plaintext sums as `Evaluator.combo_stage1` and `_stage2_sums` do (K4), and
+runs one mod-down.
 
-These are plain functions that each rank calls on its row block; the
-evaluator reaches them through `Evaluator.enable_sharded_ks`.
+These are plain functions that each rank calls on its row block;
+`parallel/mesh_evaluator.py`'s `MeshEvaluator` routes Galois switches and
+rotation combos to them.
 """
 
 from __future__ import annotations
@@ -45,8 +50,10 @@ from ..ckks.ciphertext import Ciphertext
 from ..ckks.context import BCTables, Context
 from ..ops import ntt
 from ..ops.basecvt import base_convert
-from ..ops.modarith import addmod, mulmod, submod
-from ..ops.moddown import md_partials, md_round
+from ..ops.ksmac import ks_mac
+from ..ops.modarith import mulmod, shoup_precompute
+from ..ops.moddown import (md_finish, md_finish_plain, md_lift, md_lift_plain,
+                           md_partials, md_round)
 
 
 @dataclass(frozen=True)
@@ -110,7 +117,9 @@ def build_sharded_ks(ctx: Context, nl: int, nshard: int) -> ShardedKSPlan:
 @dataclass(frozen=True)
 class RankKS:
     """One rank's device tables of a sharded key switch: its rows [lo, lo +
-    per) of the extended basis."""
+    per) of the extended basis.  To `ops.moddown`'s lift and finish it is a
+    level whose nl "active" rows are all per local rows (pmod and pinv are
+    0 on the special ones) and which has no special rows."""
     plan: ShardedKSPlan
     lo: int
     limbs: tuple              # basis index of each local row
@@ -124,6 +133,12 @@ class RankKS:
     mdq40: torch.Tensor       # (per - sp0, 1) int64
     pmod: torch.Tensor        # (per, 1) int32
     pinv: torch.Tensor        # (per, 1) int32
+    pmod_s: torch.Tensor      # their Shoup companions (uint32 bits, K5)
+    pinv_s: torch.Tensor
+    # the rest of what ops.moddown's md_lift and md_finish read
+    nl = property(lambda self: self.plan.per)
+    q_act = property(lambda self: self.q)
+    q_sp = property(lambda self: self.q[:0])
 
 
 def rank_tables(ctx: Context, plan: ShardedKSPlan, index: int) -> RankKS:
@@ -164,12 +179,16 @@ def rank_tables(ctx: Context, plan: ShardedKSPlan, index: int) -> RankKS:
                            plan.q_act_row[:, 0])
     limbs = plan.tgt_idx[lo:lo + per]
     key_rows = [t if t < nl else ctx.num_q + t - nl for t in rows]
+    q = plan.gq_full[lo:lo + per]
+    pmod, pinv = plan.pmod[lo:lo + per], plan.pinv[lo:lo + per]
+    shoup = lambda v: ctx.tensor(shoup_precompute(v, q).view(np.int32))
     return RankKS(
         plan=plan, lo=lo, limbs=limbs, key_rows=ctx.tensor(
             np.asarray(key_rows, np.int64)),
-        q=i32(plan.gq_full[lo:lo + per]), bc=bc, src=src, sp0=sp0, md=md,
+        q=i32(q), bc=bc, src=src, sp0=sp0, md=md,
         pfold=i32(plan.pfold[sp]), mdq40=ctx.tensor(plan.mdq40[sp]),
-        pmod=i32(plan.pmod[lo:lo + per]), pinv=i32(plan.pinv[lo:lo + per]))
+        pmod=i32(pmod), pinv=i32(pinv), pmod_s=shoup(pmod),
+        pinv_s=shoup(pinv))
 
 
 def ext_block(rk: RankKS, c: torch.Tensor) -> torch.Tensor:
@@ -200,71 +219,64 @@ def _decompose(ctx: Context, rk: RankKS, comm, c1_l) -> torch.Tensor:
     return ntt.fwd(yd, ctx.ntt, rk.limbs)
 
 
-def _inner(y_e, k_l, q):
-    """sum_j y_e[j] * k_l[j] mod q over the digits."""
-    prod = torch.remainder(y_e.long() * k_l[:y_e.shape[0]], q)
-    return torch.remainder(prod.sum(0), q).int()
-
-
-def sharded_mod_down(ctx: Context, rk: RankKS, comm, acc, radd=None):
-    """Step 5: the rank's (per, N) rows of the P -> Q mod-down of a
-    limb-sharded accumulator, rounded by the overflow correction; `radd`
-    (or None) is added to the active rows.  Special rows come out zero."""
+def sharded_mod_down(ctx: Context, rk: RankKS, comm, acc, add=None):
+    """Step 5: the rank's (2, per, N) rows of the P -> Q mod-down of a
+    limb-sharded accumulator acc (2, per, N), its two key halves, rounded
+    by the overflow correction; `add` (add0, add1) as for
+    `ops.moddown.mod_down`.  Special rows come out zero."""
     plan = rk.plan
     T, n = plan.nl + plan.k_sp, acc.shape[-1]
     z = lambda *s: torch.zeros(s, dtype=torch.int64, device=acc.device)
     if rk.md is None:
-        al, ahbb, part = z(1, n), z(1, n), z(T, n)
+        al, ahbb, part = z(2, 1, n), z(2, 1, n), z(2, T, n)
     else:
-        w = mulmod(ntt.inv(acc[rk.sp0:], ctx.ntt, rk.limbs[rk.sp0:]),
+        w = mulmod(ntt.inv(acc[:, rk.sp0:], ctx.ntt, rk.limbs[rk.sp0:]),
                    rk.pfold, rk.q[rk.sp0:])
         al, ahbb = md_partials(w, rk.mdq40)
         part = torch.cat([base_convert(w, rk.md, prefolded=True)[0].long(),
-                          z(plan.k_sp, n)])
+                          z(2, plan.k_sp, n)], 1)
     ov = comm.all_reduce(torch.stack([al, ahbb]))
     v = md_round(ov[0], ov[1])
-    yq = torch.remainder(comm.reduce_scatter(part, 0), rk.q).int()
-    yq = submod(yq, mulmod(v, rk.pmod, rk.q), rk.q)   # pmod 0 on specials
-    y_e = ntt.fwd(yq, ctx.ntt, rk.limbs)
-    out = mulmod(submod(acc, y_e, rk.q), rk.pinv, rk.q)  # pinv 0 on specials
-    return out if radd is None else addmod(out, radd, rk.q)
+    y = torch.remainder(comm.reduce_scatter(part, 1), rk.q).int().contiguous()
+    lift, finish = (md_lift, md_finish) if acc.is_cuda else \
+        (md_lift_plain, md_finish_plain)
+    return finish(acc, ntt.fwd(lift(y, v, rk), ctx.ntt, rk.limbs), rk, add)
 
 
 def sharded_galois(ctx: Context, rk: RankKS, comm, c0_l, c1_l, perm,
                    kb_l, ka_l):
     """One Galois key switch of the rank's extended rows (c0_l, c1_l):
-    returns the rank's rows of (r0 + k0, k1).  kb_l/ka_l: the key's
-    (ndig, per, N) halves at the rank's rows."""
+    returns the rank's rows of (r0 + k0, k1), stacked.  kb_l/ka_l: the
+    key's (ndig, per, N) halves at the rank's rows."""
     r0 = c0_l.index_select(-1, perm)
     y_e = _decompose(ctx, rk, comm, c1_l.index_select(-1, perm))
-    return (sharded_mod_down(ctx, rk, comm, _inner(y_e, kb_l, rk.q), r0),
-            sharded_mod_down(ctx, rk, comm, _inner(y_e, ka_l, rk.q)))
+    return sharded_mod_down(ctx, rk, comm, ks_mac(y_e, (kb_l, ka_l), rk.q),
+                            (r0, None))
 
 
 def sharded_combo(ctx: Context, rk: RankKS, comm, c0_l, c1_l, perms,
                   kbs_l, kas_l, coeffs):
     """sum_i pt_i * rotate_i of the rank's extended rows, decomposed once
-    with one mod-down pair: perms/kbs_l/kas_l per rotation, coeffs the
-    (R, N) int64 plaintext coefficients.  Returns the rank's rows of the
-    un-rescaled (c0, c1)."""
+    with one mod-down: perms/kbs_l/kas_l per rotation, coeffs the (R, N)
+    int64 plaintext coefficients.  Returns the rank's rows of the
+    un-rescaled (c0, c1), stacked."""
     q = rk.q
     y_e = _decompose(ctx, rk, comm, c1_l)
-    pts = ntt.fwd(torch.remainder(coeffs[:, None, :], q).int(), ctx.ntt,
-                  rk.limbs)                                  # (R, per, N)
-    a0q = a0e = a1e = torch.zeros_like(c0_l)
-    for perm, kb, ka, pt in zip(perms, kbs_l, kas_l, pts):
-        yp = y_e.index_select(-1, perm)
-        a0q = addmod(a0q, mulmod(c0_l.index_select(-1, perm), pt, q), q)
-        a0e = addmod(a0e, mulmod(_inner(yp, kb, q), pt, q), q)
-        a1e = addmod(a1e, mulmod(_inner(yp, ka, q), pt, q), q)
-    return (sharded_mod_down(ctx, rk, comm, a0e, a0q),
-            sharded_mod_down(ctx, rk, comm, a1e))
+    t01 = y_e.new_empty((len(perms), 2) + c0_l.shape)
+    for i, (perm, kb, ka) in enumerate(zip(perms, kbs_l, kas_l)):
+        ks_mac(y_e, (kb, ka), q, perm=perm, out=t01[i])
+    c0ps = torch.stack([c0_l.index_select(-1, perm) for perm in perms])
+    pt = (ntt.fwd(torch.remainder(coeffs[:, None, :], q).int(), ctx.ntt,
+                  rk.limbs),)                                # (R, per, N)
+    return sharded_mod_down(ctx, rk, comm, ks_mac(t01, pt, q)[0],
+                            (ks_mac(c0ps, pt, q)[0], None))
 
 
-def gather_rows(rk: RankKS, comm, o0_l, o1_l, scale: float) -> Ciphertext:
-    """Every rank's output rows all-gathered into the (nl, N) ciphertext."""
+def gather_rows(rk: RankKS, comm, o_l, scale: float) -> Ciphertext:
+    """Every rank's output rows o_l (2, per, N) all-gathered into the
+    (nl, N) ciphertext."""
     nl = rk.plan.nl
-    out = comm.all_gather(torch.stack([o0_l, o1_l]), 1)[:, :nl]
+    out = comm.all_gather(o_l, 1)[:, :nl]
     return Ciphertext(out[0], out[1], nl, scale)
 
 
@@ -292,33 +304,47 @@ def _check_setup(mesh, n, num_scaling, dnum, seed, rng_seed, shifts, device,
     return ctx, ev, rng, z, ct
 
 
-def _timed(mesh, ev, fn, reps: int) -> dict:
-    """Milliseconds per call of `fn` on this process alone (limb rank 0,
-    the other ranks waiting) and on the mesh (every rank, the evaluator
-    routed to it), each after one warm-up call and ending in a device
+def _on_mesh(ev, mesh, fn, launches: dict):
+    """fn(MeshEvaluator over ev's context and keys on `mesh`), its kernel
+    launches added to `launches`; raises unless fn took the sharded key
+    switch once.  Returns (the result, the MeshEvaluator)."""
+    from ..utils.timing import GLOBAL_TIMERS, launches_into
+    from .mesh_evaluator import MeshEvaluator
+    sev = MeshEvaluator(ev.ctx, ev.keys, mesh)
+    before = GLOBAL_TIMERS.counts["keyswitch_sharded"]
+    with launches_into(launches):
+        got = fn(sev)
+    if GLOBAL_TIMERS.counts["keyswitch_sharded"] != before + 1:
+        raise AssertionError("the MeshEvaluator did not take the sharded "
+                             "key switch")
+    return got, sev
+
+
+def _timed(ev, sev, fn, reps: int) -> dict:
+    """Milliseconds per call of fn(ev) on this process alone (limb rank 0,
+    the other ranks waiting) and of fn(sev), sev a MeshEvaluator, on the
+    mesh (every rank), each after one warm-up call and ending in a device
     synchronise, the bytes this rank handed to each collective per
     sharded call and the kernel launches of the sharded calls."""
     import torch.distributed as dist
     from ..utils.timing import COLLECTIVE_BYTES, launches_into
 
-    def ms(fn):
-        fn()
-        if ev.ctx.device.type == "cuda":
+    def ms(e):
+        fn(e)
+        if e.ctx.device.type == "cuda":
             torch.cuda.synchronize()
         t = time.perf_counter()
         for _ in range(reps):
-            fn()
-        if ev.ctx.device.type == "cuda":
+            fn(e)
+        if e.ctx.device.type == "cuda":
             torch.cuda.synchronize()
         return (time.perf_counter() - t) / reps * 1e3
-    out = {"single_ms": ms(fn) if mesh.coords["limb"] == 0 else None,
+    out = {"single_ms": ms(ev) if sev.mesh.coords["limb"] == 0 else None,
            "launches": {}}
     dist.barrier()
-    ev.enable_sharded_ks(mesh)
     b0 = dict(COLLECTIVE_BYTES)
     with launches_into(out["launches"]):
-        out["sharded_ms"] = ms(fn)
-    ev.enable_sharded_ks(None)
+        out["sharded_ms"] = ms(sev)
     out["collective_bytes_per_switch"] = {
         k: (COLLECTIVE_BYTES[k] - b0[k]) / (reps + 1) for k in b0}
     return out
@@ -340,7 +366,7 @@ def sharded_rotate_parity_check(mesh, n: int = 2048, num_scaling: int = 11,
     """Rotate by `rot` on the limb-sharded key switch and require it to
     equal the single-process Evaluator.rotate bit for bit; directly
     through `sharded_galois` or, with via_evaluator, through
-    Evaluator.rotate after enable_sharded_ks.  `ct`: (c0, c1, nl, scale)
+    MeshEvaluator.rotate on the same keys.  `ct`: (c0, c1, nl, scale)
     arrays to rotate instead of a fresh encryption (the same on every
     rank).  Returns the output residues, the decrypted slots' max error
     against the rotated message and the kernel launches of the sharded
@@ -348,31 +374,24 @@ def sharded_rotate_parity_check(mesh, n: int = 2048, num_scaling: int = 11,
     with `reps` and via_evaluator, also the single-process and sharded
     milliseconds per switch and the collective bytes per switch
     (`_timed`)."""
-    from ..utils.timing import GLOBAL_TIMERS, launches_into
+    from ..utils.timing import launches_into
     ctx, ev, _, z, ct = _check_setup(mesh, n, num_scaling, dnum, 77, 5,
                                      (rot,), device, ct)
     want = ev.rotate(ct, rot)
     launches = {}
     if via_evaluator:
-        before = GLOBAL_TIMERS.counts["keyswitch_sharded"]
-        ev.enable_sharded_ks(mesh)
-        with launches_into(launches):
-            got = ev.rotate(ct, rot)
-        ev.enable_sharded_ks(None)
-        if GLOBAL_TIMERS.counts["keyswitch_sharded"] != before + 1:
-            raise AssertionError("Evaluator.rotate did not take the sharded "
-                                 "key switch")
+        got, sev = _on_mesh(ev, mesh, lambda e: e.rotate(ct, rot), launches)
     else:
         comm = mesh.comms["limb"]
         rk = rank_tables(ctx, build_sharded_ks(ctx, ct.nl, comm.size),
                          mesh.coords["limb"])
         key = ev._rot_key(rot)
         with launches_into(launches):
-            o0, o1 = sharded_galois(
+            o = sharded_galois(
                 ctx, rk, comm, ext_block(rk, ct.c0), ext_block(rk, ct.c1),
                 ev._perm(rot), key.b.index_select(1, rk.key_rows),
                 key.a.index_select(1, rk.key_rows))
-            got = gather_rows(rk, comm, o0, o1, ct.scale)
+            got = gather_rows(rk, comm, o, ct.scale)
     if not _equal(got, want):
         raise AssertionError("the sharded rotation differs from "
                              "Evaluator.rotate")
@@ -380,7 +399,7 @@ def sharded_rotate_parity_check(mesh, n: int = 2048, num_scaling: int = 11,
     out = {"c0": got.c0, "c1": got.c1,
            "err": float(np.abs(dec - np.roll(z, -rot)).max())}
     if reps and via_evaluator:
-        out.update(_timed(mesh, ev, lambda: ev.rotate(ct, rot), reps))
+        out.update(_timed(ev, sev, lambda e: e.rotate(ct, rot), reps))
     out["launches"] = _add(launches, out.get("launches", {}))
     return out
 
@@ -391,11 +410,11 @@ def sharded_combo_parity_check(mesh, n: int = 2048, num_scaling: int = 11,
                                ct=None, reps: int = 0) -> dict:
     """The limb-sharded double-hoisted combo sum_j pt_j * rot_j(ct)
     against the single-process Evaluator.rotate_combo, bit for bit
-    (directly, or through rotate_combo after enable_sharded_ks).  Returns
+    (directly, or through MeshEvaluator.rotate_combo).  Returns
     the un-rescaled output residues and the rescaled decrypt's max error
     against the plaintext combination, and the kernel launches of the
     sharded calls alone, as the rotate check."""
-    from ..utils.timing import GLOBAL_TIMERS, launches_into
+    from ..utils.timing import launches_into
     ctx, ev, rng, z, ct = _check_setup(mesh, n, num_scaling, dnum, 78, 6,
                                        shifts, device, ct)
     items = []
@@ -407,28 +426,21 @@ def sharded_combo_parity_check(mesh, n: int = 2048, num_scaling: int = 11,
     want = ev.rotate_combo(ct, items)
     launches = {}
     if via_evaluator:
-        before = GLOBAL_TIMERS.counts["keyswitch_sharded"]
-        ev.enable_sharded_ks(mesh)
-        with launches_into(launches):
-            got = ev.rotate_combo(ct, items)
-        ev.enable_sharded_ks(None)
-        if GLOBAL_TIMERS.counts["keyswitch_sharded"] != before + 1:
-            raise AssertionError("Evaluator.rotate_combo did not take the "
-                                 "sharded key switch")
+        got, sev = _on_mesh(ev, mesh, lambda e: e.rotate_combo(ct, items),
+                            launches)
     else:
         comm = mesh.comms["limb"]
         rk = rank_tables(ctx, build_sharded_ks(ctx, ct.nl, comm.size),
                          mesh.coords["limb"])
         keys = [ev._rot_key(r) for r in shifts]
         with launches_into(launches):
-            o0, o1 = sharded_combo(
+            o = sharded_combo(
                 ctx, rk, comm, ext_block(rk, ct.c0), ext_block(rk, ct.c1),
                 [ev._perm(r) for r in shifts],
                 [k.b.index_select(1, rk.key_rows) for k in keys],
                 [k.a.index_select(1, rk.key_rows) for k in keys],
                 torch.stack([p.coeffs for _, p in items]))
-            got = gather_rows(rk, comm, o0, o1,
-                              ct.scale * items[0][1].scale)
+            got = gather_rows(rk, comm, o, ct.scale * items[0][1].scale)
     if not _equal(got, want):
         raise AssertionError("the sharded combo differs from "
                              "Evaluator.rotate_combo")
@@ -436,7 +448,7 @@ def sharded_combo_parity_check(mesh, n: int = 2048, num_scaling: int = 11,
     out = {"c0": got.c0, "c1": got.c1,
            "err": float(np.abs(dec - want_slots).max())}
     if reps and via_evaluator:
-        out.update(_timed(mesh, ev, lambda: ev.rotate_combo(ct, items),
+        out.update(_timed(ev, sev, lambda e: e.rotate_combo(ct, items),
                           reps))
     out["launches"] = _add(launches, out.get("launches", {}))
     return out

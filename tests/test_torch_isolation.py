@@ -1,6 +1,8 @@
 """The port stands alone: it imports neither JAX nor the JAX package, no
-file of it names either, and it runs on the card unless asked for the CPU."""
+file of it names either, and it runs on the card unless asked for the CPU.
+Its layers below `parallel/` import nothing of it."""
 
+import ast
 import os
 import re
 import subprocess
@@ -51,3 +53,27 @@ def test_context_defaults_to_cuda():
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             Context(cfg)
     assert Context(cfg, device="cpu").device.type == "cpu"
+
+
+def test_lower_layers_import_no_parallel():
+    """The layers under the mesh (ckks, ops, poly, linalg, boot, models)
+    import nothing of `parallel/`: the mesh evaluator builds on them."""
+    hits = []
+    for layer in ("ckks", "ops", "poly", "linalg", "boot", "models"):
+        for f in sorted((PORT / layer).rglob("*.py")):
+            pkg = f.relative_to(ROOT).with_suffix("").parts[:-1]
+            for node in ast.walk(ast.parse(f.read_text())):
+                if isinstance(node, ast.Import):
+                    names = [a.name for a in node.names]
+                elif isinstance(node, ast.ImportFrom):
+                    base = list(pkg[:len(pkg) - node.level + 1]) \
+                        if node.level else []
+                    mod = ".".join(base + ([node.module] if node.module
+                                           else []))
+                    names = [mod] + [f"{mod}.{a.name}" for a in node.names]
+                else:
+                    continue
+                if any(n.split(".")[:2] == [PORT.name, "parallel"]
+                       for n in names):
+                    hits.append(f"{f.relative_to(ROOT)}:{node.lineno}")
+    assert not hits, hits

@@ -4,12 +4,13 @@ nb = 8 blocks), each fed the same JAX-encrypted ciphertext and compared bit
 for bit: residues, (nl, scale) and key-switch counts.
 
   * evaluator: add_many, neg, sub_plain, rotate_hoisted, rotate_combo (eval
-    and coefficient plaintexts, with an identity term), combo_from_decomp,
+    and coefficient plaintexts, with an identity term, and of identity
+    terms alone), combo_from_decomp,
     baby_key_stack, release_device_keys / decrypt_host, the probes
   * PackedOps: required_rotations, the slot layouts, matmul_re, matmul_cr,
     matmul_bsgs, unwrap_to_repeated, wrap_up_repeated, wrap_up_expanded,
-    unwrap_expanded, and bsgs_diag_transform's hoisted branch (the JAX
-    package's FHE_BSGS_COMBO=0) in its four rescale modes
+    unwrap_expanded, and bsgs_diag_transform on the combo in its four
+    rescale modes
 """
 
 import numpy as np
@@ -149,6 +150,29 @@ def test_rotate_combo(env, coeff):
     np.testing.assert_allclose(got, want, atol=1e-2)
 
 
+@pytest.mark.parametrize("coeff", [False, True], ids=["eval_pt", "coeff_pt"])
+def test_rotate_combo_identity_terms_only(env, coeff):
+    """A combo of identity terms alone is their plaintext products: no
+    mod-down, no key switch, no combo rotation."""
+    jops, ops = env
+    jev, ev = jops.ev, ops.ev
+    _, jct = _enc(jops, 11, nl=6)
+    diags = np.random.default_rng(12).uniform(-1, 1, (2, SLOTS))
+    if coeff:
+        jitems = [(0, jev.encode_coeff_cached(("i", j), d))
+                  for j, d in enumerate(diags)]
+        items = [(0, ev.encode_coeff_cached(("i", j), d))
+                 for j, d in enumerate(diags)]
+    else:
+        jitems = [(0, jev.encode(d, nl=jct.nl, specials=True)) for d in diags]
+        items = [(0, ev.encode(d, nl=jct.nl, specials=True)) for d in diags]
+    before = {k: GLOBAL_TIMERS.counts[k] for k in ("mod_down", "combo_rot")}
+    jout, out = _both(lambda: jev.rotate_combo(jct, jitems),
+                      lambda: ev.rotate_combo(_ct(ops, jct), items))
+    _same(out, jout)
+    assert {k: GLOBAL_TIMERS.counts[k] for k in before} == before
+
+
 def test_combo_from_decomp_and_key_stack(env):
     jops, ops = env
     jev, ev = jops.ev, ops.ev
@@ -228,20 +252,18 @@ def test_wrap_unwrap_helpers(env):
 
 
 @pytest.mark.parametrize("mode", ["single", "double", "raise", "lower"])
-def test_bsgs_hoisted_branch(env, mode, monkeypatch):
-    """bsgs_diag_transform without the combo (the JAX package under
-    FHE_BSGS_COMBO=0): hoisted babies, per-level plaintexts, giant
-    rotations with dedicated keys."""
+def test_bsgs_combo_modes(env, mode):
+    """bsgs_diag_transform on the double-hoisted combo (the JAX package's
+    default) in each rescale mode, with an identity baby in every giant
+    group and giant rotations with dedicated keys."""
     jops, ops = env
-    monkeypatch.setenv("FHE_BSGS_COMBO", "0")
-    hops = PackedOps(ops.ev, d=D, bsgs_combo=False)
     rng = np.random.default_rng(30)
     diags = {k: rng.uniform(-0.5, 0.5, SLOTS) for k in (0, 1, 3, 4, 6, 7)}
     _, jct = _enc(jops, 31)
     jout, out = _both(
         lambda: jops.bsgs_diag_transform(jct, diags, 4, rescale_mode=mode),
-        lambda: hops.bsgs_diag_transform(_ct(ops, jct), diags, 4,
-                                         rescale_mode=mode))
+        lambda: ops.bsgs_diag_transform(_ct(ops, jct), diags, 4,
+                                        rescale_mode=mode))
     _same(out, jout)
 
 
@@ -263,38 +285,41 @@ def test_release_keys_and_probes(env):
 
 
 def test_heavy_and_fused_chunk_do_not_change_results(env):
-    """Evaluator(heavy_chunk=, fused_chunk=) (the JAX package's
-    FHE_HEAVY_CHUNK / FHE_FUSED_CHUNK) only splits the batch."""
+    """A smaller heavy_chunk (the JAX package's FHE_HEAVY_CHUNK /
+    FHE_FUSED_CHUNK) only splits the batch, of the fused Chebyshev nodes
+    too."""
     jops, ops = env
     _, jct = _enc(jops, 50, batch=5, nl=6)
     ct = _ct(ops, jct)
-    small = Evaluator(ops.ev.ctx, ops.ev.keys, heavy_chunk=2, fused_chunk=3)
-    assert (small.heavy_chunk, small.fused_chunk) == (2, 3)
+    small = Evaluator(ops.ev.ctx, ops.ev.keys)
+    small.heavy_chunk = 2
+    assert ops.ev.heavy_chunk > 5
     for f in (lambda ev: ev.rotate(ct, 3), lambda ev: ev.mul(ct, ct),
               lambda ev: ev.square_double_minus_one(ct)):
         a, b = f(ops.ev), f(small)
         assert torch.equal(a.c0, b.c0) and torch.equal(a.c1, b.c1)
 
 
-@pytest.mark.parametrize("combo", [True, False], ids=["combo", "hoisted"])
-def test_diagonal_plaintexts_follow_a_new_dict(env, combo):
+@pytest.mark.parametrize("bs", [4, 2], ids=["combo", "combo_bs2"])
+def test_diagonal_plaintexts_follow_a_new_dict(env, bs):
     """bsgs_diag_transform caches its plaintexts under the diagonal dict's
     id(): once a caller drops one dict, a new dict on the same evaluator
     must get its own plaintexts, not the dropped dict's (CPython gives the
-    next dict a display or comprehension makes a freed dict's address)."""
+    next dict a display or comprehension makes a freed dict's address), at
+    two baby sizes."""
     _, ops = env
     ev = Evaluator(ops.ev.ctx, ops.ev.keys)
-    pops = PackedOps(ev, d=D, bsgs_combo=combo)
+    pops = PackedOps(ev, d=D)
     rng = np.random.default_rng(60)
     offsets = (0, 1, 3, 4, 6, 7)
     ct = ev.encrypt(rng.uniform(-1, 1, SLOTS))
     first = {k: rng.uniform(-0.5, 0.5, SLOTS) for k in offsets}
     values = [rng.uniform(-0.5, 0.5, SLOTS) for _ in offsets]
-    pops.bsgs_diag_transform(ct, first, 4)
+    pops.bsgs_diag_transform(ct, first, bs)
     del first
     second = {k: v for k, v in zip(offsets, values)}
-    got = pops.bsgs_diag_transform(ct, second, 4)
-    fresh = PackedOps(Evaluator(ops.ev.ctx, ops.ev.keys), d=D,
-                      bsgs_combo=combo).bsgs_diag_transform(ct, second, 4)
+    got = pops.bsgs_diag_transform(ct, second, bs)
+    fresh = PackedOps(Evaluator(ops.ev.ctx, ops.ev.keys),
+                      d=D).bsgs_diag_transform(ct, second, bs)
     assert (got.nl, got.scale) == (fresh.nl, fresh.scale)
     assert torch.equal(got.c0, fresh.c0) and torch.equal(got.c1, fresh.c1)

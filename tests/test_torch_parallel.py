@@ -7,8 +7,8 @@ on its results.  While the ranks run, this process builds the references:
 
   * `build_sharded_ks` against the JAX package's plan, array by array;
   * the limb-sharded Galois switch and combo (n = 2^11, 12 q-limbs + 4
-    special, dnum 3) on 2 and 4 limb ranks, directly and through the
-    evaluator: each rank requires its result to equal its single-process
+    special, dnum 3) on 2 and 4 limb ranks, directly and through a
+    MeshEvaluator: each rank requires its result to equal its single-process
     switch, and here the result must equal the JAX package's
     `Evaluator.rotate` / `rotate_combo` on the same JAX-encrypted
     ciphertext; every rank's `keyswitch_sharded` count is positive;
@@ -23,8 +23,8 @@ on its results.  While the ranks run, this process builds the references:
   * a failing rank raising in the launcher.
 
 Without a spawn: the evaluator counts each key switch where it runs (a
-dp rank its own block's), and runs plaintext products and rescales in
-chunks equal to one call.
+MeshEvaluator's dp rank its own block's), and runs plaintext products and
+rescales in chunks equal to one call.
 """
 
 import concurrent.futures
@@ -48,6 +48,7 @@ from fhe_linformer_tpu_torch.convert import (ciphertext_from_numpy,
 from fhe_linformer_tpu_torch.parallel.circuit import dryrun_circuit
 from fhe_linformer_tpu_torch.parallel.dryrun import dryrun_worker
 from fhe_linformer_tpu_torch.parallel.mesh import launch
+from fhe_linformer_tpu_torch.parallel.mesh_evaluator import MeshEvaluator
 from fhe_linformer_tpu_torch.primes import ntt_primes
 from fhe_linformer_tpu_torch.utils.timing import GLOBAL_TIMERS
 
@@ -292,17 +293,16 @@ def small_ev():
 @pytest.mark.parametrize("dp", [False, True])
 def test_keyswitch_counted_where_it_runs(small_ev, dp):
     """a (batch 1) broadcasts over b (batch 4) in the product: 4 switches,
-    2 on a dp rank; the accumulated rotations 2 per ciphertext."""
+    2 on a dp rank (a MeshEvaluator); the accumulated rotations 2 per
+    ciphertext."""
     ev, a, b = small_ev
-    ev.enable_dp(types.SimpleNamespace(comms={"dp": _HalfDp()})
-                 if dp else None)
-    try:
-        k0 = GLOBAL_TIMERS.counts["keyswitch"]
-        ev.mul(a, b, rescale=False)
-        ev.rotate_accumulate_tree(b, (1, 2))
-        got = GLOBAL_TIMERS.counts["keyswitch"] - k0
-    finally:
-        ev.enable_dp(None)
+    if dp:
+        ev = MeshEvaluator(ev.ctx, ev.keys, types.SimpleNamespace(
+            shape={"dp": 2, "limb": 1}, comms={"dp": _HalfDp()}))
+    k0 = GLOBAL_TIMERS.counts["keyswitch"]
+    ev.mul(a, b, rescale=False)
+    ev.rotate_accumulate_tree(b, (1, 2))
+    got = GLOBAL_TIMERS.counts["keyswitch"] - k0
     assert got == (2 + 2 * 2 if dp else 4 + 2 * 4)
 
 
