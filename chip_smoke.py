@@ -16,6 +16,15 @@ Phases, each printing one JSON line:
                 sharded key switch's per-rank shapes of phase 9): exact
                 equality, median time, the plain version's time, and the
                 least time the card could take (`bound`)
+  2b. modops  - K6 (csrc/modops.cu), the evaluator's residue arithmetic:
+                mod_ew's sums, products, multiply-adds and negation, the
+                decomposition's own rows written in place, rs_lift and
+                rs_finish (with mul_plain's plaintext as the factor), each
+                exactly against its plain version (the former int64 torch
+                chains) at the cells' shapes, with median time, the
+                chain's time and the bound; the whole rescale against its
+                former route; calls equal to launches; the host's
+                microseconds a call on both routes at ring 2^8
   3. keyswitch - the CLI `bench` case: one Galois key switch at N = 2^15,
                 24 limbs, dnum 3, batch 4 (the yardstick for later speed
                 work); rotate_hoisted of the same ciphertext by 3 shifts,
@@ -109,7 +118,9 @@ Phases, each printing one JSON line:
                 (--keys-dir, --cls-only) and golden as subprocesses at
                 preset tiny on the card: exit codes and argmax
  11. the `kernels` line: every kernel with its launches over phases 4-9,
-     6b and 7b included (phase 9's ranks send theirs to this process)
+     6b and 7b included (phase 9's ranks send theirs to this process);
+     after each of those phases a `<phase>_k6` line holds K6's calls and
+     launches in this process, and the script fails unless they are equal
 
 It ends with {"ok": true, "device": {...}}.  Any failure raises and exits
 non-zero before that line.  There is no CPU path: the script refuses to run
@@ -138,8 +149,9 @@ INT8_TC_OPS_PER_S = 1979e12      # H100 SXM dense int8 tensor-core rate
 # clock per SM for 32-bit integer multiply(-add), half the float32 FMA rate
 INT_MUL_PER_CLOCK_PER_SM = 64
 PORT = "fhe_linformer_tpu_torch"
+MODOPS = ("mod_ew", "rs_lift", "rs_finish")        # K6's entry points
 KERNELS = ("ntt_fwd", "ntt_inv", "base_convert", "ks_mac", "md_fold",
-           "md_lift", "md_finish")
+           "md_lift", "md_finish") + MODOPS
 SHARDED_KERNELS = ("ntt_fwd", "ntt_inv", "base_convert", "ks_mac", "md_lift",
                    "md_finish")
 REFERENCE = PORT.removesuffix("_torch")      # the JAX package the port mirrors
@@ -148,12 +160,13 @@ REPLACES = {"ntt_fwd": f"{REFERENCE}/ops/ntt_pallas.py:195",
             "base_convert": f"{REFERENCE}/ops/basecvt.py:81",
             "ks_mac": "none: plain XLA in the JAX package",
             **{k: "none: plain XLA in the JAX package"
-               for k in ("md_fold", "md_lift", "md_finish")}}
+               for k in ("md_fold", "md_lift", "md_finish") + MODOPS}}
 SOURCES = {"ntt_fwd": f"{PORT}/csrc/ntt.cu", "ntt_inv": f"{PORT}/csrc/ntt.cu",
            "base_convert": f"{PORT}/csrc/basecvt.cu",
            "ks_mac": f"{PORT}/csrc/ksmac.cu",
            **{k: f"{PORT}/csrc/moddown.cu"
-              for k in ("md_fold", "md_lift", "md_finish")}}
+              for k in ("md_fold", "md_lift", "md_finish")},
+           **{k: f"{PORT}/csrc/modops.cu" for k in MODOPS}}
 LOG2N = 15
 MODDOWN_BATCH = 16       # the mod-down's batch on the forward (2 halves x 8)
 # the JAX package's records of the same requests on its own chip: counts
@@ -689,6 +702,259 @@ def phase_kernels(ctx, tiny, ring16):
         emit({"phase": "kernels", **r})
         main.setdefault(r["kernel"], r)       # each kernel's first case
     return main, rows
+
+
+# ---------------------------------------------------------------------------
+# phase 2b
+
+# 32-bit multiplies a residue: a Barrett product is the 64-bit product (2),
+# its high half by mu (4) and the quotient by q (2); `dot` shares one
+# reduction between two products; a Shoup product is 3
+EW_MULS = {"mul": 8, "fma": 8, "dot": 10, "add": 0, "sub": 0, "neg": 0}
+# K6's operands: full-size residues a call reads besides `a`
+EW_FULL = {"mul": 1, "fma": 2, "dot": 3, "add": 1, "sub": 1, "neg": 0}
+
+
+def _former_rescale(ctx, c0, c1, plan):
+    """The evaluator's rescale before K6: the halves stacked, K2 on the top
+    limb, then the lift and the finish as int64 torch chains around K1."""
+    import torch
+    from fhe_linformer_tpu_torch.ops import modops, ntt
+    nl = plan.nl
+    x = torch.stack((c0, c1))
+    v = ntt.inv(x[..., nl - 1:, :], ctx.ntt, (nl - 1,))
+    lift_e = ntt.fwd(modops.rs_lift_plain(v, plan), ctx.ntt,
+                     tuple(range(nl - 1)))
+    return modops.rs_finish_plain(x[0], x[1], lift_e, plan)
+
+
+def _ew_case(ctx, op, nl, lead, second, gen, reps):
+    """mod_ew's `op` at level nl on (*lead, nl, n) residues, the second
+    operand a full tensor ("ct"), a plaintext's rows broadcast over lead
+    ("pt") or an (L, 1) constant ("const"); the other operands full."""
+    from fhe_linformer_tpu_torch.ops import modops
+    n, qs, q = ctx.cfg.n, ctx.qs[:nl], ctx.mod(ctx.limb_idx(nl))
+    full = lambda: random_residues(tuple(lead) + (nl, n), qs, gen, "cuda")
+    a = full()
+    shapes = {"ct": tuple(lead) + (nl, n), "pt": (nl, n), "const": (nl, 1)}
+    b = random_residues(shapes[second], qs, gen, "cuda")
+    rest = [full() for _ in range({"fma": 1, "dot": 2}.get(op, 0))]
+    args = (a, None if op == "neg" else b, q, *rest)
+    shape = [*lead, nl, n]
+    err = _held(f"mod_ew {op}", modops.mod_ew(op, *args),
+                modops.mod_ew_plain(op, *args), shape)
+    res = a.numel()
+    full_reads = EW_FULL[op] - (second != "ct" and op != "neg")
+    nbytes = 4 * res * (2 + full_reads) + (4 * b.numel() if second != "ct"
+                                           and op != "neg" else 0)
+    b_ms, b_by = bound(nbytes, EW_MULS[op] * res)
+    return {"kernel": "mod_ew", "op": op, "second": second, "n": n,
+            "nl": nl, "shape": shape, "max_abs_err": err,
+            "ms": cuda_ms(lambda: modops.mod_ew(op, *args), reps, inner=10),
+            "plain_ms": cuda_ms(lambda: modops.mod_ew_plain(op, *args), 3,
+                                1),
+            "bound_ms": b_ms, "bound_by": b_by}
+
+
+def _own_rows_case(ctx, nl, B, gen, reps):
+    """The decomposition's own rows at level nl for B ciphertexts: one
+    mod_ew product a digit group, read from a limb slice and written into
+    the digit stack in place, against the former product over every limb
+    and the copies."""
+    import torch
+    from fhe_linformer_tpu_torch.ops import modops
+    ks = ctx.ks_tables(nl)
+    n = ctx.cfg.n
+    cx = random_residues((B, nl, n), ctx.qs[:nl], gen, "cuda")
+    y = torch.zeros((len(ks.groups), B, nl + ctx.k_sp, n),
+                    dtype=torch.int32, device="cuda")
+    want = y.clone()
+
+    def run():
+        for j, g in enumerate(ks.groups):
+            r = slice(g[0], g[-1] + 1)
+            modops.mod_ew("mul", cx[..., r, :], ks.own[r], ks.q_act[r],
+                          out=y[j, ..., r, :])
+
+    def former():
+        own = modops.mod_ew_plain("mul", cx, ks.own, ks.q_act)
+        for j, g in enumerate(ks.groups):
+            want[j, ..., g[0]:g[-1] + 1, :] = own[..., g[0]:g[-1] + 1, :]
+
+    run()
+    former()
+    shape = [len(ks.groups), B, nl, n]
+    b_ms, b_by = bound(8 * B * nl * n, EW_MULS["mul"] * B * nl * n)
+    return {"kernel": "mod_ew", "op": "own_rows", "n": n, "nl": nl,
+            "shape": shape, "launches": len(ks.groups),
+            "max_abs_err": _held("own rows", y, want, shape),
+            "ms": cuda_ms(run, reps, inner=10),
+            "plain_ms": cuda_ms(former, 3, 1),
+            "bound_ms": b_ms, "bound_by": b_by}
+
+
+def _rescale_cases(ctx, nl, lead, fac, gen, reps):
+    """At level nl on halves (*lead, nl, n), limb slices of larger tensors
+    as the evaluator's chunks are: rs_lift and rs_finish (with mul_plain's
+    plaintext as the factor when `fac`) each against its plain version,
+    then the whole rescale (K2, rs_lift, K1, rs_finish, with the factor's
+    top-limb product) against the former route (the product, the stack,
+    K2, the int64 lift, K1 and the int64 finish)."""
+    import torch
+    from fhe_linformer_tpu_torch.ops import modops, ntt
+    plan = ctx.rescale_tables(nl)
+    n, m = ctx.cfg.n, nl - 1
+    qs, q = ctx.qs[:nl], ctx.mod(ctx.limb_idx(nl))
+    big = lambda: random_residues(tuple(lead) + (nl + 1, n),
+                                  list(qs) + [3], gen, "cuda")[..., :nl, :]
+    c0, c1 = big(), big()
+    f = random_residues((nl, n), qs, gen, "cuda") if fac else None
+    qd = int(qs[-1])
+    v = torch.randint(0, qd, (2,) + tuple(lead) + (1, n), generator=gen,
+                      device="cuda", dtype=torch.int64)
+    v[..., :64] = plan.half               # the tie and one either side
+    v[..., 64:96] = plan.half + 1
+    v[..., 96:128] = plan.half - 1
+    v = v.int()
+    lift_e = random_residues((2,) + tuple(lead) + (m, n), qs[:m], gen,
+                             "cuda")
+    shape = [2, *lead, nl, n]
+    halves = 2 * c0.numel() // (nl * n)
+    res = halves * m * n
+    fb = 4 * m * n if fac else 0
+    rows = []
+    for name, nbytes, muls, run, plain in (
+            ("rs_lift", 4 * halves * n + 4 * res, 3 * res,
+             lambda: modops.rs_lift(v, plan),
+             lambda: modops.rs_lift_plain(v, plan)),
+            ("rs_finish", 12 * res + fb, (3 + 8 * bool(fac)) * res,
+             lambda: modops.rs_finish(c0, c1, lift_e, plan, f),
+             lambda: modops.rs_finish_plain(c0, c1, lift_e, plan, f))):
+        b_ms, b_by = bound(nbytes, muls)
+        rows.append({"kernel": name, "factor": bool(fac), "n": n, "nl": nl,
+                     "shape": shape,
+                     "max_abs_err": _held(name, run(), plain(), shape),
+                     "ms": cuda_ms(run, reps, inner=10),
+                     "plain_ms": cuda_ms(plain, 3, 1),
+                     "bound_ms": b_ms, "bound_by": b_by})
+
+    def former():
+        x0, x1 = c0, c1
+        if fac:
+            x0, x1 = (modops.mod_ew_plain("mul", x, f, q) for x in (c0, c1))
+        return _former_rescale(ctx, x0, x1, plan)
+
+    run = lambda: modops.rescale(c0, c1, ctx.ntt, plan, f)
+    k6 = sum(r["ms"] for r in rows)
+    rows.append({"kernel": "rescale", "factor": bool(fac), "n": n, "nl": nl,
+                 "shape": shape,
+                 "max_abs_err": _held("rescale", run(), former(), shape),
+                 "k6_ms": k6,
+                 "k6_bound_ms": sum(r["bound_ms"] for r in rows),
+                 "ms": cuda_ms(run, reps, inner=5),
+                 "plain_ms": cuda_ms(former, 3, 1)})
+    return rows
+
+
+def _host_us(fn, calls: int = 2000) -> float:
+    """Wall microseconds a call of fn() over `calls` back-to-back calls, on
+    shapes so small that the host's dispatch sets the pace."""
+    import torch
+    for _ in range(10):
+        fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t) / calls * 1e6
+
+
+def _host_cases(tiny):
+    """The host's microseconds a call on K6's route and on the former torch
+    chain, at preset tiny's ring (2^8, 8 ciphertexts at level 4): what a
+    host-bound cell pays per call."""
+    import torch
+    from fhe_linformer_tpu_torch.ops import modops
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(2)
+    nl, n = 4, tiny.cfg.n
+    qs, q = tiny.qs[:nl], tiny.mod(tiny.limb_idx(nl))
+    plan = tiny.rescale_tables(nl)
+    x = [random_residues((8, nl, n), qs, gen, "cuda") for _ in range(4)]
+    pt = random_residues((nl, n), qs, gen, "cuda")
+    rows = []
+    for what, k6, chain in (
+            ("mul_pt", lambda: modops.mod_ew("mul", x[0], pt, q),
+             lambda: modops.mod_ew_plain("mul", x[0], pt, q)),
+            ("add", lambda: modops.mod_ew("add", x[0], x[1], q),
+             lambda: modops.mod_ew_plain("add", x[0], x[1], q)),
+            ("dot", lambda: modops.mod_ew("dot", x[0], x[1], q, x[2], x[3]),
+             lambda: modops.mod_ew_plain("dot", x[0], x[1], q, x[2], x[3])),
+            ("rescale", lambda: modops.rescale(x[0], x[1], tiny.ntt, plan),
+             lambda: _former_rescale(tiny, x[0], x[1], plan)),
+            ("mul_plain_rescale",
+             lambda: modops.rescale(x[0], x[1], tiny.ntt, plan, pt),
+             lambda: _former_rescale(
+                 tiny, *(modops.mod_ew_plain("mul", c, pt, q)
+                         for c in (x[0], x[1])), plan))):
+        rows.append({"what": what, "n": n, "nl": nl, "batch": 8,
+                     "k6_us": _host_us(k6), "chain_us": _host_us(chain)})
+    return rows
+
+
+def phase_modops(ctx, tiny):
+    """K6 on the card (ops/modops.py, csrc/modops.cu): each entry point
+    against its plain version (the evaluator's former int64 torch chains)
+    at the cells' shapes, exactly, with its median time, the chain's time
+    and its bound; the decomposition's own rows in place; the whole
+    rescale against its former route.  The per-token cell's main shape
+    (level 23, 8 ciphertexts, both halves) comes first for each entry
+    point.  Fails unless each entry point's calls equal its launches over
+    the phase.  Returns the main-shape row per entry point."""
+    import torch
+    from fhe_linformer_tpu_torch.utils.timing import (GLOBAL_TIMERS,
+                                                      KERNEL_LAUNCHES)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(6)
+    calls = {k: GLOBAL_TIMERS.counts[k] for k in MODOPS}
+    fired = {k: KERNEL_LAUNCHES[k] for k in MODOPS}
+    rows = []
+    # mul_plain's product (rescale=False) and the tensor's terms, the sums
+    # of both halves, the negation, mul_scalar_int's constant, the combo's
+    # identity term; then the other cells' levels: the packed circuit's
+    # floor (12), the combo's groups (16 x 2 at 24), the bootstrap's top
+    # (57 x 32)
+    for op, second, nl, lead in (
+            ("mul", "pt", 23, (2, 8)), ("mul", "ct", 23, (2, 8)),
+            ("dot", "ct", 23, (8,)), ("add", "ct", 23, (2, 8)),
+            ("sub", "pt", 23, (8,)), ("neg", "ct", 23, (2, 8)),
+            ("mul", "const", 23, (2, 8)), ("fma", "pt", 23, (2, 8)),
+            ("add", "ct", 12, (2, 8)), ("mul", "pt", 12, (2, 8)),
+            ("add", "ct", 24, (16, 2, 2)), ("mul", "pt", 57, (2, 32)),
+            ("dot", "ct", 57, (32,))):
+        rows.append(_ew_case(ctx, op, nl, lead, second, gen, 20))
+    rows += [_own_rows_case(ctx, 23, 8, gen, 20),
+             _own_rows_case(ctx, 57, 32, gen, 10)]
+    for nl, lead, fac in ((23, (8,), False), (23, (8,), True),
+                          (12, (8,), True), (24, (16, 2), False),
+                          (57, (32,), False)):
+        rows += _rescale_cases(ctx, nl, lead, fac, gen, 20)
+    host = _host_cases(tiny)
+    torch.cuda.synchronize()
+    got = {k: (GLOBAL_TIMERS.counts[k] - calls[k],
+               KERNEL_LAUNCHES[k] - fired[k]) for k in MODOPS}
+    if any(c != f for c, f in got.values()):
+        raise AssertionError(f"K6 calls differ from its launches: {got}")
+    main = {}
+    for r in rows:
+        emit({"phase": "modops", **r})
+        main.setdefault(r["kernel"], r)
+    for r in host:
+        emit({"phase": "modops_host", **r})
+    emit({"phase": "modops_launches",
+          **{k: {"calls": c, "launches": f} for k, (c, f) in got.items()}})
+    return main
 
 
 # ---------------------------------------------------------------------------
@@ -2293,9 +2559,29 @@ def phase_parallel():
     return launches
 
 
-PHASES = ("card", "kernels", "keyswitch", "forward", "bootstrap",
+PHASES = ("card", "kernels", "modops", "keyswitch", "forward", "bootstrap",
           "boot_forward", "native", "token_forward", "token_forward_ref",
           "ring16", "parallel", "cli")
+def _engaged(name, run):
+    """run() (a path's phase), then fails unless each K6 entry point's
+    calls in this process equal its launches over the phase: no CUDA
+    tensor took the plain route.  Returns run()'s launches."""
+    import torch
+    from fhe_linformer_tpu_torch.utils.timing import (GLOBAL_TIMERS,
+                                                      KERNEL_LAUNCHES)
+    calls = {k: GLOBAL_TIMERS.counts[k] for k in MODOPS}
+    fired = {k: KERNEL_LAUNCHES[k] for k in MODOPS}
+    out = run()
+    torch.cuda.synchronize()
+    got = {k: [GLOBAL_TIMERS.counts[k] - calls[k],
+               KERNEL_LAUNCHES[k] - fired[k]] for k in MODOPS}
+    emit({"phase": f"{name}_k6", "calls_launches": got})
+    if any(c != f for c, f in got.values()):
+        raise AssertionError(f"{name}: K6 calls differ from its launches: "
+                             f"{got}")
+    return out
+
+
 PATHS = {"forward": phase_forward, "bootstrap": phase_bootstrap,
          "boot_forward": phase_boot_forward, "native": phase_native,
          "token_forward": phase_token_forward,
@@ -2324,13 +2610,18 @@ def main(argv=None) -> int:
         main_shapes, kernel_rows = phase_kernels(
             Context(get("linformer-boot-w").ckks), Context(get("tiny").ckks),
             Context(get("linformer-128c").ckks))
+    if "modops" in only:
+        main_k6 = phase_modops(Context(get("linformer-boot-w").ckks),
+                               Context(get("tiny").ckks))
     if "keyswitch" in only:
         phase_keyswitch()
-    paths = {name: run() for name, run in PATHS.items() if name in only}
+    paths = {name: _engaged(name, run) for name, run in PATHS.items()
+             if name in only}
     if "cli" in only:
         phase_cli()
     if set(only) != set(PHASES):
         return 0
+    main_shapes.update(main_k6)
     for name, counts in paths.items():
         missing = [k for k in KERNELS if counts[k] <= 0]
         if missing:

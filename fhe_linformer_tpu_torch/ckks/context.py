@@ -125,6 +125,9 @@ class RescalePlan:
     inv: torch.Tensor         # (nl-1, 1) qd^-1 mod q_i
     qrem: torch.Tensor        # (nl-1, 1) remaining primes
     qdm: torch.Tensor         # (nl-1, 1) qd mod q_i
+    inv_s: torch.Tensor       # (nl-1, 1) Shoup constant of inv (uint32 bits)
+    one_s: torch.Tensor       # (nl-1, 1) floor(2^32 / q_i): v mod q_i by Shoup
+    qd: torch.Tensor          # (1, 1) the dropped prime
 
 
 class Context:
@@ -141,6 +144,7 @@ class Context:
         self._mod: dict[tuple, torch.Tensor] = {}
         self._ks: dict[int, LevelKS] = {}
         self._rescale: dict[int, RescalePlan] = {}
+        self._factor: dict[int, torch.Tensor] = {}
         self._galois_perm: dict[int, torch.Tensor] = {}
 
     def tensor(self, a) -> torch.Tensor:
@@ -200,10 +204,22 @@ class Context:
             inv = np.asarray([pow(qd, int(q) - 2, int(q)) for q in rem[:, 0]],
                              np.int64).reshape(-1, 1)
             i32 = lambda a: self.tensor(a.astype(np.int32))
+            shoup = lambda w: self.tensor(np.ascontiguousarray(
+                shoup_precompute(w, rem)).view(np.int32))
             self._rescale[nl] = RescalePlan(
                 nl=nl, half=qd // 2, inv=i32(inv), qrem=i32(rem),
-                qdm=i32(int(qd) % rem))
+                qdm=i32(int(qd) % rem), inv_s=shoup(inv),
+                one_s=shoup(np.ones_like(rem)),
+                qd=i32(np.full((1, 1), qd, np.int64)))
         return self._rescale[nl]
+
+    def factor(self, v: int) -> torch.Tensor:
+        """(1, 1) int32 tensor of a small v (0 <= v below every prime),
+        cached: a factor that broadcasts over every limb."""
+        if v not in self._factor:
+            assert 0 <= v < min(self.basis)
+            self._factor[v] = self.tensor(np.full((1, 1), v, np.int32))
+        return self._factor[v]
 
     # -- hybrid key-switch tables --------------------------------------------
 

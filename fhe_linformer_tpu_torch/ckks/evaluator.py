@@ -18,6 +18,14 @@ full-basis or reduced-basis, KSKey.max_nl), then the mod-down
 K5's finish, which adds the caller's c0 or d0 / d1 terms in the same
 pass).  A hoisted rotation hands K4 its Galois permutation, which it reads
 in place; the rotation combo's plaintext sums run on K4 too.
+
+The residue arithmetic around them runs on kernel K6 (`ops/modops.py`)
+for CUDA tensors: sums, differences and products of residues
+(`ops/modarith.py` sends them there), the ct x ct tensor's middle term in
+one pass, the decomposition's own rows written into the digit stack, and
+every rescale as K2 on the top limb, K6's lift, K1 and K6's finish, which
+applies mul_plain's plaintext (or the Chebyshev nodes' doubling) and adds
+the nodes' final term in the same pass.
 """
 
 from __future__ import annotations
@@ -26,7 +34,7 @@ import numpy as np
 import torch
 
 from ..io.native import crt_lift_center
-from ..ops import ntt
+from ..ops import modops, ntt
 from ..ops.basecvt import base_convert
 from ..ops.ksmac import ks_mac
 from ..ops.moddown import mod_down
@@ -424,9 +432,9 @@ class Evaluator:
         p = pt.data
 
         def core(a0, a1, b=p):
-            c0, c1 = mulmod(a0, b, q), mulmod(a1, b, q)
-            return (c0, c1) if plan is None else \
-                _rescale_body(self.ctx, c0, c1, plan)
+            if plan is None:
+                return mulmod(a0, b, q), mulmod(a1, b, q)
+            return _rescale_body(self.ctx, a0, a1, plan, f=b)
         # a batched plaintext rides the batch
         c0, c1 = self._batched(core, (ct.c0, ct.c1) + ((p,) if p.dim() > 2
                                                        else ()),
@@ -536,15 +544,16 @@ class Evaluator:
         relin = self._require_keys("mul/relin").relin
         plans = [ctx.rescale_tables(m) for m in range(nl, nl_out, -1)]
         plan_c = ctx.rescale_tables(nl_out + 1)
-        qc = ctx.mod(limbs_c)
 
         def core(a0, a1, b0, b1, e0, e1):
-            c0, c1 = _mul2_tail(ctx, a0, a1, b0, b1, relin, ks)
-            for plan in plans:
-                c0, c1 = _rescale_body(ctx, c0, c1, plan)
-            f0, f1 = _rescale_body(ctx, mulmod(e0, vc, qc),
-                                   mulmod(e1, vc, qc), plan_c)
-            return submod(c0, f0, plan_c.qrem), submod(c1, f1, plan_c.qrem)
+            c0, c1 = _mul_relin_core(ctx, a0, a1, b0, b1, relin, ks)
+            c0, c1 = _double_rescale(ctx, c0, c1, plans)
+            # c - rescale(e vc) in e's finish, over the batch of both
+            lead = torch.broadcast_shapes(c0.shape[:-2], e0.shape[:-2],
+                                          e1.shape[:-2])
+            e0, e1 = (e.expand(lead + e.shape[-2:]) for e in (e0, e1))
+            return _rescale_body(ctx, e0, e1, plan_c, f=vc, add=(c0, c1),
+                                 mode="rsub")
         c0, c1 = self._batched(core, (a.c0, a.c1, b.c0, b.c1, c.c0, c.c1))
         return Ciphertext(c0, c1, nl_out, s_out)
 
@@ -574,10 +583,8 @@ class Evaluator:
         m1 = ctx.tensor(((-v) % qs).reshape(-1, 1).astype(np.int32))
 
         def core(a0, a1):
-            c0, c1 = _mul2_tail(ctx, a0, a1, a0, a1, relin, ks)
-            for plan in plans:
-                c0, c1 = _rescale_body(ctx, c0, c1, plan)
-            return addmod(c0, m1, plans[-1].qrem), c1
+            c0, c1 = _mul_relin_core(ctx, a0, a1, a0, a1, relin, ks)
+            return _double_rescale(ctx, c0, c1, plans, add=(m1, None))
         c0, c1 = self._batched(core, (a.c0, a.c1))
         return Ciphertext(c0, c1, nl_out, s_out)
 
@@ -882,10 +889,11 @@ class Evaluator:
         else:
             c0 = ct.c0.new_zeros((len(groups),) + ct.c0.shape)
             c1 = torch.zeros_like(c0)
-        for g, p in id_extra:
-            t = self.mul_plain(ct, self._pt_q(p, ks), rescale=False)
-            c0[g] = addmod(c0[g], t.c0, ks.q_act)
-            c1[g] = addmod(c1[g], t.c1, ks.q_act)
+        for g, p in id_extra:              # c[g] += ct.c * p, in place
+            _COUNTS.count("ctpt_mult", _nct(ct))
+            pq = self._pt_q(p, ks).data
+            for c, x in ((c0, ct.c0), (c1, ct.c1)):
+                modops.mod_ew("fma", x, pq, ks.q_act, c[g], out=c[g])
         return ([gs for gs, _ in groups],
                 Ciphertext(c0, c1, ct.nl, ct.scale * scale))
 
@@ -894,29 +902,39 @@ class Evaluator:
 # key-switch and rescale cores (plain functions on tensors)
 # ----------------------------------------------------------------------
 
-def _rescale_body(ctx: Context, c0, c1, plan: RescalePlan):
-    """Drop limb nl-1 of (c0, c1) with a centered lift: out = (c - lift(v))
-    * qd^-1 over the remaining limbs, v the dropped limb's coefficients."""
-    nl = plan.nl
-    x = torch.stack((c0, c1))
-    v = ntt.inv(x[..., nl - 1:, :], ctx.ntt, (nl - 1,))
-    vm = torch.remainder(v, plan.qrem)
-    lift = torch.where(v <= plan.half, vm, submod(vm, plan.qdm, plan.qrem))
-    lift_e = ntt.fwd(lift, ctx.ntt, ctx.limb_idx(nl - 1))
-    out = mulmod(submod(x[..., : nl - 1, :], lift_e, plan.qrem), plan.inv,
-                 plan.qrem)
+def _rescale_body(ctx: Context, c0, c1, plan: RescalePlan, f=None,
+                  add=None, mode: str = "add"):
+    """Drop limb nl-1 of (c0 f, c1 f) with a centered lift: out = (c f -
+    lift(v)) * qd^-1 over the remaining limbs, v the dropped limb's
+    coefficients of c f (f: None, plaintext rows or a constant over the nl
+    limbs); then each half's term of `add` taken in by `mode` (out + a or
+    a - out).  K2, K6's lift, K1 and K6's finish on the card
+    (`ops/modops.py`)."""
+    out = modops.rescale(c0, c1, ctx.ntt, plan, f, add, mode)
     return out[0], out[1]
+
+
+def _double_rescale(ctx: Context, c0, c1, plans, add=None):
+    """The Chebyshev nodes' tail: 2 (c0, c1) rescaled by each plan in turn
+    (the doubling rides the first rescale's factor), `add` added to the
+    last one's halves."""
+    for i, plan in enumerate(plans):
+        c0, c1 = _rescale_body(ctx, c0, c1, plan,
+                               f=None if i else ctx.factor(2),
+                               add=add if i == len(plans) - 1 else None)
+    return c0, c1
 
 
 def _ks_decompose(ctx: Context, cx_coeff, ks: LevelKS, cx_eval):
     """Digit-decompose + base-convert + NTT: returns the eval-domain digit
     stack (nd, ..., nl + k, N).  Digit j's rows at its own group limbs skip
     the NTT: fast base conversion is exact at the source primes, so those
-    rows are F_j^-1 * cx_eval."""
+    rows are F_j^-1 * cx_eval, written in place."""
     y = ntt.fwd(base_convert(cx_coeff, ks.bc), ctx.ntt, ks.dig_limbs)
-    own_e = mulmod(cx_eval, ks.own, ks.q_act)      # the rows fwd skipped
-    for j, g in enumerate(ks.groups):
-        y[j, ..., g[0]:g[-1] + 1, :] = own_e[..., g[0]:g[-1] + 1, :]
+    for j, g in enumerate(ks.groups):              # the rows fwd skipped
+        r = slice(g[0], g[-1] + 1)
+        modops.mod_ew("mul", cx_eval[..., r, :], ks.own[r], ks.q_act[r],
+                      out=y[j, ..., r, :])
     return y
 
 
@@ -974,16 +992,9 @@ def _relin(ctx: Context, d2, relin: KSKey, ks: LevelKS, add=None):
 
 def _mul_relin_core(ctx: Context, a0, a1, b0, b1, relin: KSKey, ks: LevelKS):
     q = ks.q_act
-    d0 = mulmod(a0, b0, q)
-    d1 = addmod(mulmod(a0, b1, q), mulmod(a1, b0, q), q)
-    return _relin(ctx, mulmod(a1, b1, q), relin, ks, add=(d0, d1))
-
-
-def _mul2_tail(ctx: Context, a0, a1, b0, b1, relin: KSKey, ks: LevelKS):
-    """Relinearized product, doubled (head of the Chebyshev nodes)."""
-    q = ks.q_act
-    c0, c1 = _mul_relin_core(ctx, a0, a1, b0, b1, relin, ks)
-    return addmod(c0, c0, q), addmod(c1, c1, q)
+    d1 = modops.mod_ew("dot", a0, b1, q, a1, b0)
+    return _relin(ctx, mulmod(a1, b1, q), relin, ks,
+                  add=(mulmod(a0, b0, q), d1))
 
 
 # ----------------------------------------------------------------------
@@ -992,9 +1003,9 @@ def _mul2_tail(ctx: Context, a0, a1, b0, b1, relin: KSKey, ks: LevelKS):
 
 def _slot_tables(ctx: Context, encoder: Encoder, m: int, slot_idx):
     """The constants of decrypt_slots_device over the first m limbs:
-    (Q/q_i)^-1 mod q_i, U_i = (Q/q_i) mod 2^32, Q mod 2^32, 2^-32 mod q_0
-    (int64) and the requested rows of the inverse canonical embedding
-    (float32 (k, n))."""
+    (Q/q_i)^-1 mod q_i (int32, a residue for K6), U_i = (Q/q_i) mod 2^32
+    (int64), Q mod 2^32, 2^-32 mod q_0 and the requested rows of the
+    inverse canonical embedding (float32 (k, n))."""
     qs = [int(x) for x in ctx.qs[:m]]
     big_q = 1
     for x in qs:
@@ -1005,7 +1016,7 @@ def _slot_tables(ctx: Context, encoder: Encoder, m: int, slot_idx):
     j = np.arange(n, dtype=np.float64)
     # slot_s = sum_j x_j * cos(pi * j * (2 k_fwd[s] + 1) / n) / scale
     rows = np.cos(np.pi * np.outer(2 * kf + 1, j) / n).astype(np.float32)
-    return (as_col([pow(big_q // qi, -1, qi) for qi in qs]),
+    return (as_col([pow(big_q // qi, -1, qi) for qi in qs]).int(),
             as_col([(big_q // qi) % (1 << 32) for qi in qs]),
             big_q % (1 << 32), pow((1 << 32) % qs[0], -1, qs[0]),
             ctx.tensor(rows))

@@ -21,7 +21,7 @@ import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
-SOURCES = ("ntt", "basecvt", "ksmac", "moddown", "fastio")
+SOURCES = ("ntt", "basecvt", "ksmac", "moddown", "modops", "fastio")
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 _BUILD = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 _FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

@@ -1,16 +1,25 @@
-"""Modular arithmetic on RNS residue tensors (plain PyTorch).
+"""Modular arithmetic on RNS residue tensors.
 
 Residues are stored as `torch.int32`: every prime q is below 2**30, so a
-residue, and the sum of two, fits a signed 32-bit lane.  Products need 64
-bits and go through int64 (torch on the CPU has no uint32 add, shift,
-compare or remainder).  Moduli are (L, 1) int32 tensors (or scalars) that
-broadcast against (..., L, N) residues.
+residue, and the sum of two, fits a signed 32-bit lane.  Moduli are (L, 1)
+int32 tensors (or scalars) that broadcast against (..., L, N) residues.
+
+Which route a tensor takes: `mulmod`, `addmod`, `submod` and `negmod` send
+int32 residues on a CUDA device, with int32 operands, to kernel K6's
+`mod_ew` (`ops/modops.py`, `csrc/modops.cu`: one 32-bit pass, counted in
+`GLOBAL_TIMERS.counts["mod_ew"]` and `KERNEL_LAUNCHES["mod_ew"]`).  Every
+other tensor (a CPU tensor, an int64 operand such as the slot decrypt's
+CRT words or the plain kernels' int64 mirrors) takes the plain int64
+expressions below (`*_plain`): torch on the CPU has no uint32 add, shift,
+compare or remainder, so products go through int64.  Both routes return
+canonical residues and agree bit for bit; the plain ones are what the CPU
+tests hold to the JAX package.
 
 `barrett_mulmod` and `shoup_mulmod` are the JAX package's two multiplies
 with its arguments, computed exactly in int64; the 16-bit-half `mulhi32`
 the TPU needed has no counterpart.  Every multiply returns the canonical
-residue, so the evaluator uses the plain `mulmod` (an int64 remainder),
-which is bit-identical to both.
+residue, so the evaluator uses the plain `mulmod` (an int64 remainder, or
+K6), which is bit-identical to both.
 """
 
 from __future__ import annotations
@@ -19,7 +28,20 @@ import numpy as np
 import torch
 
 
+def _on_card(a, b=None) -> bool:
+    """True for int32 CUDA residues with an int32 operand: K6's route."""
+    return a.is_cuda and a.dtype == torch.int32 and \
+        (b is None or b.dtype == torch.int32)
+
+
 def mulmod(a, b, q) -> torch.Tensor:
+    """a*b mod q as int32."""
+    if _on_card(a, b):
+        return modops.mod_ew("mul", a, b, q)
+    return mulmod_plain(a, b, q)
+
+
+def mulmod_plain(a, b, q) -> torch.Tensor:
     """a*b mod q as int32; exact while a*b < 2**63 (a < 2**33, b < q)."""
     return torch.remainder(a.long() * b, q).int()
 
@@ -59,17 +81,36 @@ def shoup_mulmod(a, w, w_shoup, q) -> torch.Tensor:
 
 def addmod(a, b, q) -> torch.Tensor:
     """a + b mod q for a, b < q."""
+    if _on_card(a, b):
+        return modops.mod_ew("add", a, b, q)
+    return addmod_plain(a, b, q)
+
+
+def addmod_plain(a, b, q) -> torch.Tensor:
     r = a + b
     return torch.where(r >= q, r - q, r)
 
 
 def submod(a, b, q) -> torch.Tensor:
     """a - b mod q for a, b < q."""
+    if _on_card(a, b):
+        return modops.mod_ew("sub", a, b, q)
+    return submod_plain(a, b, q)
+
+
+def submod_plain(a, b, q) -> torch.Tensor:
     r = a - b
     return torch.where(r < 0, r + q, r)
 
 
 def negmod(a, q) -> torch.Tensor:
+    """-a mod q for a < q."""
+    if _on_card(a):
+        return modops.mod_ew("neg", a, None, q)
+    return negmod_plain(a, q)
+
+
+def negmod_plain(a, q) -> torch.Tensor:
     return torch.where(a == 0, a, q - a)
 
 
@@ -79,3 +120,7 @@ def shoup_precompute(w, q) -> np.ndarray:
     w = np.asarray(w, np.int64)
     q = np.asarray(q, np.int64)
     return ((w << 32) // q).astype(np.uint32)
+
+
+# K6's wrapper takes the plain expressions above for its CPU route
+from . import modops  # noqa: E402

@@ -5,9 +5,10 @@
 per-head scores (`head_scores`) and value mix (`head_mix`), on the host's
 clock with no synchronize.  `GLOBAL_TIMERS.counts` counts the
 per-primitive work the evaluator does (`keyswitch`, `combo_rot`,
-`rescale`, ...), the calls of the kernel wrappers K4 and K5 on either
-route (`ks_mac`, `mod_down`), the d x d block products of the block-major
-matmuls by ciphertext (`block_matmul`), the residue rows made from
+`rescale`, ...), the calls of the kernel wrappers K4, K5 and K6 on either
+route (`ks_mac`, `mod_down`, `mod_ew`, `rs_lift`, `rs_finish`), the d x d
+block products of the block-major matmuls by ciphertext
+(`block_matmul`), the residue rows made from
 coefficient plaintexts for the rotation combo (`pt_rows`) and the
 ciphertexts the bootstrap refreshes (`bootstrap`).  `KERNEL_LAUNCHES` counts each CUDA kernel's
 launches: a wrapper adds one where it launches its kernel and nowhere else,
@@ -58,7 +59,8 @@ GLOBAL_TIMERS = Timers()
 # kernel name -> launches; the names are the ones chip_smoke.py reports
 KERNEL_LAUNCHES: dict[str, int] = {"ntt_fwd": 0, "ntt_inv": 0,
                                    "base_convert": 0, "ks_mac": 0,
-                                   "md_fold": 0, "md_lift": 0, "md_finish": 0}
+                                   "md_fold": 0, "md_lift": 0, "md_finish": 0,
+                                   "mod_ew": 0, "rs_lift": 0, "rs_finish": 0}
 
 
 # collective -> bytes of the tensors this process handed to it
