@@ -2567,14 +2567,24 @@ def _engaged(name, run):
     calls in this process equal its launches over the phase: no CUDA
     tensor took the plain route.  Returns run()'s launches."""
     import torch
-    from fhe_linformer_tpu_torch.utils.timing import (GLOBAL_TIMERS,
-                                                      KERNEL_LAUNCHES)
-    calls = {k: GLOBAL_TIMERS.counts[k] for k in MODOPS}
-    fired = {k: KERNEL_LAUNCHES[k] for k in MODOPS}
-    out = run()
+    from fhe_linformer_tpu_torch.utils import timing
+    calls = {k: timing.GLOBAL_TIMERS.counts[k] for k in MODOPS}
+    fired = {k: -timing.KERNEL_LAUNCHES[k] for k in MODOPS}
+    reset = timing.reset_launches
+
+    def carry():                  # a phase's reset_launches keeps K6's
+        for k in MODOPS:
+            fired[k] += timing.KERNEL_LAUNCHES[k]
+        reset()
+
+    timing.reset_launches = carry
+    try:
+        out = run()
+    finally:
+        timing.reset_launches = reset
     torch.cuda.synchronize()
-    got = {k: [GLOBAL_TIMERS.counts[k] - calls[k],
-               KERNEL_LAUNCHES[k] - fired[k]] for k in MODOPS}
+    got = {k: [timing.GLOBAL_TIMERS.counts[k] - calls[k],
+               timing.KERNEL_LAUNCHES[k] + fired[k]] for k in MODOPS}
     emit({"phase": f"{name}_k6", "calls_launches": got})
     if any(c != f for c, f in got.values()):
         raise AssertionError(f"{name}: K6 calls differ from its launches: "

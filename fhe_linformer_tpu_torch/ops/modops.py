@@ -247,10 +247,18 @@ def _moduli(name: str, q, rows: int, device) -> None:
 
 
 def _broadcast(shapes) -> tuple:
-    try:
-        return tuple(torch.broadcast_shapes(*shapes))
-    except RuntimeError as e:
-        raise ValueError(f"operands do not broadcast: {e}") from None
+    """The shapes' broadcast shape, in plain Python: the first
+    torch.broadcast_shapes call of a process imports sympy (seconds)."""
+    nd = max(len(sh) for sh in shapes)
+    out = [1] * nd
+    for sh in shapes:
+        for i, s in enumerate(sh, nd - len(sh)):
+            if s != 1 and out[i] not in (1, s):
+                raise ValueError(f"operands do not broadcast: "
+                                 f"{[tuple(x) for x in shapes]}")
+            if s != 1:
+                out[i] = s
+    return tuple(out)
 
 
 def _strides(x, shape) -> list:
