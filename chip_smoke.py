@@ -1396,8 +1396,7 @@ def phase_forward():
     from fhe_linformer_tpu_torch.config import get
     from fhe_linformer_tpu_torch.models import golden
     from fhe_linformer_tpu_torch.models.circuit_packed import PackedLinformer
-    from fhe_linformer_tpu_torch.utils.timing import (KERNEL_LAUNCHES,
-                                                      reset_launches)
+    from fhe_linformer_tpu_torch.utils.timing import KERNEL_LAUNCHES
     t0 = time.perf_counter()
     ctx = Context(get("linformer-boot-w").ckks)
     rots = _rotations(ctx.cfg.slots)
@@ -1415,11 +1414,11 @@ def phase_forward():
     emit({"phase": "forward_setup", "basis": len(ctx.basis),
           "rotation_keys": len(rots), "keygen_s": setup_s,
           "memory_allocated_gb": torch.cuda.memory_allocated() / 2 ** 30})
-    reset_launches()
+    before = dict(KERNEL_LAUNCHES)
     for caches in ("cold", "warm"):
         for emb, inter in zip(embs, inters):
             _request("forward", circ, emb, inter["logits"], caches)
-    launches = dict(KERNEL_LAUNCHES)
+    launches = _since(before)
     with _shape_census() as calls:
         trace, runs = _device_breakdown(lambda: _answer(circ, embs[0], {}))
     emit({"phase": "forward_trace", "S": sizes[0], "plaintext_caches": "warm",
@@ -1484,14 +1483,13 @@ def phase_bootstrap():
     import torch
     from fhe_linformer_tpu_torch.boot.bootstrap import BootConfig
     from fhe_linformer_tpu_torch.utils.timing import (KERNEL_LAUNCHES,
-                                                      approx_error_log2,
-                                                      reset_launches)
+                                                      approx_error_log2)
     ev, booter, info = _boot_setup(BootConfig.wide_production(scale_boost=4))
     batch = 4
     m = np.random.default_rng(3).uniform(-0.9, 0.9, (batch, ev.ctx.cfg.slots))
     low = ev.drop_to(ev.encrypt(m, batch=True), 1)
     torch.cuda.synchronize()
-    reset_launches()
+    before = dict(KERNEL_LAUNCHES)
     runs = []
     for label in ("first", "warm"):
         torch.cuda.reset_peak_memory_stats()
@@ -1501,7 +1499,7 @@ def phase_bootstrap():
         runs.append({"run": label, "s": time.perf_counter() - t,
                      "max_memory_allocated_gb":
                          torch.cuda.max_memory_allocated() / 2 ** 30})
-    launches = dict(KERNEL_LAUNCHES)
+    launches = _since(before)
     prec = approx_error_log2(m, np.real(ev.decrypt_host(out)))
     with _shape_census() as calls:
         trace, traced = _device_breakdown(lambda: booter.bootstrap(low))
@@ -1554,13 +1552,12 @@ def phase_boot_forward(sizes=BOOT_FORWARD_SIZES):
     unless each request matches golden; prints its bootstrapped ciphertexts
     beside the JAX package's records (3 and 13)."""
     import torch
-    from fhe_linformer_tpu_torch.utils.timing import (KERNEL_LAUNCHES,
-                                                      reset_launches)
+    from fhe_linformer_tpu_torch.utils.timing import KERNEL_LAUNCHES
     circ, booter, info, embs, want = _boot_forward_circuit(sizes)
     emit({"phase": "boot_forward_setup", **info,
           "scale_boost": booter.cfg.scale_boost,
           "memory_allocated_gb": torch.cuda.memory_allocated() / 2 ** 30})
-    reset_launches()
+    before = dict(KERNEL_LAUNCHES)
     for S, caches in ((sizes[0], "cold"), (sizes[0], "warm"),
                       (sizes[1], "warm")):
         ref = {"reference_bootstraps": REFERENCE_BOOTSTRAPS[S]}
@@ -1568,7 +1565,7 @@ def phase_boot_forward(sizes=BOOT_FORWARD_SIZES):
             ref["reference_keyswitches"] = REFERENCE_KEYSWITCHES_S128
         _request("boot_forward", circ, embs[S], want[S], caches,
                  boot=booter, input_nl=12, **ref)
-    launches = dict(KERNEL_LAUNCHES)
+    launches = _since(before)
     with _shape_census() as calls:
         trace, runs = _device_breakdown(
             lambda: _answer(circ, embs[sizes[0]], {}, booter, 12))
@@ -1614,8 +1611,7 @@ def phase_native():
     from fhe_linformer_tpu_torch.ops import cuda_build
     from fhe_linformer_tpu_torch.poly import Gadgets, cheb, cheb_eval
     from fhe_linformer_tpu_torch.utils.timing import (GLOBAL_TIMERS,
-                                                      KERNEL_LAUNCHES,
-                                                      reset_launches)
+                                                      KERNEL_LAUNCHES)
     if "fastio" in BUILD_REPORT:
         build = {"s": BUILD_REPORT["fastio"]["seconds"], "in": "card"}
     else:
@@ -1696,7 +1692,7 @@ def phase_native():
                                                  ev.ctx.cfg.slots))
     fresh = ev.encrypt(z, batch=True)
     torch.cuda.synchronize()
-    reset_launches()
+    before = dict(KERNEL_LAUNCHES)
     t = time.perf_counter()
     resumed = circ.pooler_classifier(loaded, boot=booter)
     torch.cuda.synchronize()
@@ -1706,7 +1702,7 @@ def phase_native():
     y = Gadgets(ev).relu(fresh, degree=RELU["degree"])
     torch.cuda.synchronize()
     relu_s = time.perf_counter() - t
-    launches = dict(KERNEL_LAUNCHES)
+    launches = _since(before)
     relu_ks = GLOBAL_TIMERS.counts["keyswitch"] - ks0
 
     ckpt["resumed_equal"] = _same(ciphertext_to_numpy(resumed),
@@ -1759,8 +1755,7 @@ def phase_ring16(batch=2):
     from fhe_linformer_tpu_torch.config import get
     from fhe_linformer_tpu_torch.security import assess
     from fhe_linformer_tpu_torch.utils.timing import (KERNEL_LAUNCHES,
-                                                      approx_error_log2,
-                                                      reset_launches)
+                                                      approx_error_log2)
     gc.collect()
     torch.cuda.empty_cache()
     start_gb = torch.cuda.memory_allocated() / 2 ** 30
@@ -1772,7 +1767,7 @@ def phase_ring16(batch=2):
     m = np.random.default_rng(3).uniform(-0.9, 0.9, (batch, ev.ctx.cfg.slots))
     low = ev.drop_to(ev.encrypt(m, batch=True), 1)
     torch.cuda.synchronize()
-    reset_launches()
+    before = dict(KERNEL_LAUNCHES)
     runs = []
     for label in ("cold", "warm"):
         torch.cuda.reset_peak_memory_stats()
@@ -1782,7 +1777,7 @@ def phase_ring16(batch=2):
         runs.append({"run": label, "s": time.perf_counter() - t,
                      "max_memory_allocated_gb":
                          torch.cuda.max_memory_allocated() / 2 ** 30})
-    launches = dict(KERNEL_LAUNCHES)
+    launches = _since(before)
     t = time.perf_counter()
     prec = approx_error_log2(m, np.real(ev.decrypt_host(out)))
     decrypt_s = time.perf_counter() - t
@@ -2017,8 +2012,7 @@ def _config5(key_set: str, S: int, trace: bool):
     from fhe_linformer_tpu_torch.models import golden
     from fhe_linformer_tpu_torch.models.circuit import (CircuitParams,
                                                         EncryptedLinformer)
-    from fhe_linformer_tpu_torch.utils.timing import (KERNEL_LAUNCHES,
-                                                      reset_launches)
+    from fhe_linformer_tpu_torch.utils.timing import KERNEL_LAUNCHES
     preset = get("multi-layer")
     ctx = Context(preset.ckks)
     bootcfg = BootConfig.wide_production()
@@ -2089,7 +2083,7 @@ def _config5(key_set: str, S: int, trace: bool):
                                        + w1.bp[None]).max()),
         exp_pow8=False)
     circ = EncryptedLinformer(ev, w1, params)
-    reset_launches()
+    before = dict(KERNEL_LAUNCHES)
     # both requests draw the same encryption randomness, so the warm one
     # (plaintext caches filled by the cold one) must give the cold one's
     # ciphertext bit for bit: the golden bound cannot see a layer computed
@@ -2102,7 +2096,7 @@ def _config5(key_set: str, S: int, trace: bool):
             circ, booter, emb, inter["logits"], [w2], caches, 12,
             same_as=cold, preset=preset.name, key_set=key_set)
     del cold
-    launches = dict(KERNEL_LAUNCHES)
+    launches = _since(before)
     if trace:
         with _shape_census() as calls:
             trace_line, runs = _device_breakdown(lambda: circ.forward(
@@ -2562,29 +2556,31 @@ def phase_parallel():
 PHASES = ("card", "kernels", "modops", "keyswitch", "forward", "bootstrap",
           "boot_forward", "native", "token_forward", "token_forward_ref",
           "ring16", "parallel", "cli")
+
+
+def _since(before: dict) -> dict:
+    """The kernel launches made since `before`, a copy of KERNEL_LAUNCHES:
+    a phase counts its own launches without resetting the counts, which
+    `_engaged` reads across the whole phase."""
+    from fhe_linformer_tpu_torch.utils.timing import KERNEL_LAUNCHES
+    return {k: KERNEL_LAUNCHES[k] - before[k] for k in KERNEL_LAUNCHES}
+
+
 def _engaged(name, run):
     """run() (a path's phase), then fails unless each K6 entry point's
     calls in this process equal its launches over the phase: no CUDA
-    tensor took the plain route.  Returns run()'s launches."""
+    tensor took the plain route.  No phase resets the launch counts, and
+    one that did would make them fall short of the calls and fail here.
+    Returns run()'s launches."""
     import torch
-    from fhe_linformer_tpu_torch.utils import timing
-    calls = {k: timing.GLOBAL_TIMERS.counts[k] for k in MODOPS}
-    fired = {k: -timing.KERNEL_LAUNCHES[k] for k in MODOPS}
-    reset = timing.reset_launches
-
-    def carry():                  # a phase's reset_launches keeps K6's
-        for k in MODOPS:
-            fired[k] += timing.KERNEL_LAUNCHES[k]
-        reset()
-
-    timing.reset_launches = carry
-    try:
-        out = run()
-    finally:
-        timing.reset_launches = reset
+    from fhe_linformer_tpu_torch.utils.timing import (GLOBAL_TIMERS,
+                                                      KERNEL_LAUNCHES)
+    calls = {k: GLOBAL_TIMERS.counts[k] for k in MODOPS}
+    before = dict(KERNEL_LAUNCHES)
+    out = run()
     torch.cuda.synchronize()
-    got = {k: [timing.GLOBAL_TIMERS.counts[k] - calls[k],
-               timing.KERNEL_LAUNCHES[k] + fired[k]] for k in MODOPS}
+    fired = _since(before)
+    got = {k: [GLOBAL_TIMERS.counts[k] - calls[k], fired[k]] for k in MODOPS}
     emit({"phase": f"{name}_k6", "calls_launches": got})
     if any(c != f for c, f in got.values()):
         raise AssertionError(f"{name}: K6 calls differ from its launches: "

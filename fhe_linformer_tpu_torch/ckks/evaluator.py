@@ -38,7 +38,7 @@ from ..ops import modops, ntt
 from ..ops.basecvt import base_convert
 from ..ops.ksmac import ks_mac
 from ..ops.moddown import mod_down
-from ..ops.modarith import addmod, mulmod, negmod, submod
+from ..ops.modarith import addmod, mulmod, negmod, submod, submod_plain
 from ..ops.ntt import NttTables
 from ..utils.timing import GLOBAL_TIMERS as _COUNTS
 from .ciphertext import Ciphertext, CoeffPlaintext, Plaintext
@@ -549,8 +549,8 @@ class Evaluator:
             c0, c1 = _mul_relin_core(ctx, a0, a1, b0, b1, relin, ks)
             c0, c1 = _double_rescale(ctx, c0, c1, plans)
             # c - rescale(e vc) in e's finish, over the batch of both
-            lead = torch.broadcast_shapes(c0.shape[:-2], e0.shape[:-2],
-                                          e1.shape[:-2])
+            lead = modops.broadcast_shape([c0.shape[:-2], e0.shape[:-2],
+                                           e1.shape[:-2]])
             e0, e1 = (e.expand(lead + e.shape[-2:]) for e in (e0, e1))
             return _rescale_body(ctx, e0, e1, plan_c, f=vc, add=(c0, c1),
                                  mode="rsub")
@@ -1039,7 +1039,7 @@ def _crt_low_and_carry(r, q, tab):
     y = ((t * u_i) & mask).sum(-2) & mask
     y = (y - ((k * uq) & mask)) & mask
     q0 = q[0].long()
-    d = submod(r[..., 0, :].long(), y % q0, q0)
+    d = submod_plain(r[..., 0, :].long(), y % q0, q0)
     c = (d * inv32) % q0
     return t, k, y, torch.where(c > q0 // 2, c - q0, c)
 

@@ -27,7 +27,7 @@ import torch
 
 from ..utils.timing import KERNEL_LAUNCHES
 from . import cuda_build
-from .modarith import addmod, shoup_mulmod
+from .modarith import addmod_plain, shoup_mulmod
 
 # The paired planes P0 + 256 P1 stay below 2**30 only while
 # 257 * 128**2 * 4 alpha < 2**30, i.e. alpha <= 63 (csrc/basecvt.cu).
@@ -166,8 +166,8 @@ def base_convert_planes_plain(x: torch.Tensor, bc, prefolded: bool = False
     q, bias, sh1, p16, p16_s = rowc
     x01 = (p01 + bias) & 0xFFFFFFFF                        # the u32 sums
     x23 = (p23 + bias) & 0xFFFFFFFF
-    y = addmod(shoup_mulmod(x01, torch.ones_like(q), sh1, q).long(),
-               shoup_mulmod(x23, p16, p16_s, q).long(), q)
+    y = addmod_plain(shoup_mulmod(x01, torch.ones_like(q), sh1, q).long(),
+                     shoup_mulmod(x23, p16, p16_s, q).long(), q)
     return y.transpose(0, 1).reshape((nd,) + lead + (tgt, n)).int()
 
 

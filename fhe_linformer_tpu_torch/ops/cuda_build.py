@@ -114,8 +114,11 @@ def build(names=SOURCES) -> dict[str, dict]:
 
 def library(name: str) -> ctypes.CDLL:
     """The loaded library for csrc/<name>.cu or .cpp, built first if
-    needed."""
+    needed: a kernel's first use builds every kernel source not built yet,
+    all at once, so a fresh checkout waits for one nvcc, not one per
+    kernel in turn."""
     if name not in _loaded:
-        build((name,))
+        kernels = tuple(s for s in SOURCES if _source(s).suffix == ".cu")
+        build(kernels if name in kernels else (name,))
         _loaded[name] = ctypes.CDLL(str(library_path(name)))
     return _loaded[name]

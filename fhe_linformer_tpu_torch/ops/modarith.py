@@ -5,13 +5,14 @@ residue, and the sum of two, fits a signed 32-bit lane.  Moduli are (L, 1)
 int32 tensors (or scalars) that broadcast against (..., L, N) residues.
 
 Which route a tensor takes: `mulmod`, `addmod`, `submod` and `negmod` send
-int32 residues on a CUDA device, with int32 operands, to kernel K6's
-`mod_ew` (`ops/modops.py`, `csrc/modops.cu`: one 32-bit pass, counted in
-`GLOBAL_TIMERS.counts["mod_ew"]` and `KERNEL_LAUNCHES["mod_ew"]`).  Every
-other tensor (a CPU tensor, an int64 operand such as the slot decrypt's
-CRT words or the plain kernels' int64 mirrors) takes the plain int64
-expressions below (`*_plain`): torch on the CPU has no uint32 add, shift,
-compare or remainder, so products go through int64.  Both routes return
+a CUDA tensor to kernel K6's `mod_ew` (`ops/modops.py`, `csrc/modops.cu`:
+one 32-bit pass, counted in `GLOBAL_TIMERS.counts["mod_ew"]` and
+`KERNEL_LAUNCHES["mod_ew"]`), which takes int32 operands only and raises
+on any other.  A CPU tensor takes the plain int64 expressions below
+(`*_plain`): torch on the CPU has no uint32 add, shift, compare or
+remainder, so products go through int64.  Code that works on int64 words
+on either device (the slot decrypt's CRT terms, the plain references of
+the kernels) calls the `*_plain` functions by name.  Both routes return
 canonical residues and agree bit for bit; the plain ones are what the CPU
 tests hold to the JAX package.
 
@@ -28,15 +29,9 @@ import numpy as np
 import torch
 
 
-def _on_card(a, b=None) -> bool:
-    """True for int32 CUDA residues with an int32 operand: K6's route."""
-    return a.is_cuda and a.dtype == torch.int32 and \
-        (b is None or b.dtype == torch.int32)
-
-
 def mulmod(a, b, q) -> torch.Tensor:
     """a*b mod q as int32."""
-    if _on_card(a, b):
+    if a.is_cuda:
         return modops.mod_ew("mul", a, b, q)
     return mulmod_plain(a, b, q)
 
@@ -81,7 +76,7 @@ def shoup_mulmod(a, w, w_shoup, q) -> torch.Tensor:
 
 def addmod(a, b, q) -> torch.Tensor:
     """a + b mod q for a, b < q."""
-    if _on_card(a, b):
+    if a.is_cuda:
         return modops.mod_ew("add", a, b, q)
     return addmod_plain(a, b, q)
 
@@ -93,7 +88,7 @@ def addmod_plain(a, b, q) -> torch.Tensor:
 
 def submod(a, b, q) -> torch.Tensor:
     """a - b mod q for a, b < q."""
-    if _on_card(a, b):
+    if a.is_cuda:
         return modops.mod_ew("sub", a, b, q)
     return submod_plain(a, b, q)
 
@@ -105,7 +100,7 @@ def submod_plain(a, b, q) -> torch.Tensor:
 
 def negmod(a, q) -> torch.Tensor:
     """-a mod q for a < q."""
-    if _on_card(a):
+    if a.is_cuda:
         return modops.mod_ew("neg", a, None, q)
     return negmod_plain(a, q)
 

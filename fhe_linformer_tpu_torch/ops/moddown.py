@@ -36,7 +36,7 @@ import torch
 from ..utils.timing import GLOBAL_TIMERS, KERNEL_LAUNCHES
 from . import cuda_build, ntt
 from .basecvt import base_convert
-from .modarith import addmod, mulmod, submod
+from .modarith import addmod_plain, mulmod_plain, submod_plain
 from .ntt_cuda import entry_stride
 
 _P = ctypes.c_void_p
@@ -89,23 +89,24 @@ def md_overflow(w, mdq40):
 def md_fold_plain(vp, ks):
     """(w, v): the special rows vp (..., k, N) folded by (P/p_t)^-1, and
     their overflow (..., 1, N)."""
-    w = mulmod(vp, ks.pfold, ks.q_sp)
+    w = mulmod_plain(vp, ks.pfold, ks.q_sp)
     return w, md_overflow(w, ks.mdq40)
 
 
 def md_lift_plain(y, v, ks):
     """y - v [P]_{q_i} mod q_i over the nl active rows of y."""
-    return submod(y, mulmod(v, ks.pmod, ks.q_act), ks.q_act)
+    return submod_plain(y, mulmod_plain(v, ks.pmod, ks.q_act), ks.q_act)
 
 
 def md_finish_plain(x, y_e, ks, add=None, half_dim=0, out=None):
     """(x_Q - y_e) [P^-1]_{q_i} mod q_i, each half's addend added."""
     nl = ks.nl
-    res = mulmod(submod(x[..., :nl, :], y_e, ks.q_act), ks.pinv, ks.q_act)
+    res = mulmod_plain(submod_plain(x[..., :nl, :], y_e, ks.q_act), ks.pinv,
+                       ks.q_act)
     for h, a in enumerate(add or ()):
         if a is not None:
             r = res.select(half_dim, h)
-            r.copy_(addmod(a, r, ks.q_act))
+            r.copy_(addmod_plain(a, r, ks.q_act))
     if out is None:
         return res
     out.copy_(res)

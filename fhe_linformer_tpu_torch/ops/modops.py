@@ -123,8 +123,7 @@ def _top(c0, c1, plan, f):
     ft = f[..., t:, :] if f.shape[-2] > 1 else f
     if pair is not None:
         return mod_ew("mul", pair[..., t:, :], ft, plan.qd)
-    lead = torch.broadcast_shapes(c0.shape[:-2], c1.shape[:-2],
-                                  ft.shape[:-2])
+    lead = broadcast_shape([c0.shape[:-2], c1.shape[:-2], ft.shape[:-2]])
     top = c0.new_empty((2,) + lead + (1, c0.shape[-1]))
     for h, c in enumerate((c0, c1)):
         mod_ew("mul", c[..., t:, :], ft, plan.qd, out=top[h])
@@ -246,7 +245,7 @@ def _moduli(name: str, q, rows: int, device) -> None:
                          f"{tuple(q.shape)}")
 
 
-def _broadcast(shapes) -> tuple:
+def broadcast_shape(shapes) -> tuple:
     """The shapes' broadcast shape, in plain Python: the first
     torch.broadcast_shapes call of a process imports sympy (seconds)."""
     nd = max(len(sh) for sh in shapes)
@@ -370,7 +369,7 @@ def _ew_layout(op, a, b, q, c, d, out) -> _Layout:
     _residues("a", a, a.device)
     for name, x in named[1:k]:
         _residues(name, x, a.device)
-    shape = _broadcast([x.shape for _, x in named[:k]])
+    shape = broadcast_shape([x.shape for _, x in named[:k]])
     rows, n = shape[-2], shape[-1]
     _moduli("q", q, rows, a.device)
     if n % 4:
@@ -515,7 +514,8 @@ def _finish_layout(x0, x1, lift_e, plan, f, adds, mode) -> _Layout:
                                  f"1), got {tuple(a.shape)}")
         named.append((f"add{h}", a))
     shape = lead + (m, n)
-    got = _broadcast([shape] + [x.shape for _, x in named if x is not None])
+    got = broadcast_shape([shape] + [x.shape for _, x in named
+                                     if x is not None])
     if got != shape:
         raise ValueError(f"the operands broadcast to {got}, lift_e holds "
                          f"{shape}")

@@ -28,7 +28,7 @@ import numpy as np
 import torch
 
 from ..primes import root_of_unity
-from .modarith import addmod, shoup_precompute, submod
+from .modarith import addmod_plain, shoup_precompute, submod_plain
 
 
 def _bitrev(n: int) -> np.ndarray:
@@ -167,7 +167,8 @@ def fwd_plain(x: torch.Tensor, t: NttTables, limbs) -> torch.Tensor:
         a = a.reshape(*lead, m, 2, h)
         u = a[..., 0, :]
         v = torch.remainder(a[..., 1, :] * w[:, m:2 * m, None], q)
-        a = torch.stack((addmod(u, v, q), submod(u, v, q)), dim=-2)
+        a = torch.stack((addmod_plain(u, v, q), submod_plain(u, v, q)),
+                        dim=-2)
         m, h = 2 * m, h // 2
     return a.reshape(*lead, n)[..., t.brev].int()
 
@@ -188,8 +189,8 @@ def inv_plain(x: torch.Tensor, t: NttTables, limbs) -> torch.Tensor:
         a = a.reshape(*lead, m, 2, h)
         u = a[..., 0, :]
         v = a[..., 1, :]
-        a = torch.stack((addmod(u, v, q),
-                         torch.remainder(submod(u, v, q)
+        a = torch.stack((addmod_plain(u, v, q),
+                         torch.remainder(submod_plain(u, v, q)
                                          * w[:, m:2 * m, None], q)), dim=-2)
         m, h = m // 2, 2 * h
     a = a.reshape(*lead, n)

@@ -22,7 +22,7 @@ import torch
 
 from ..utils.timing import KERNEL_LAUNCHES
 from . import cuda_build
-from .modarith import addmod, shoup_mulmod, submod
+from .modarith import addmod_plain, shoup_mulmod, submod_plain
 from .ntt import NttTables, is_limb_map
 
 # Each thread holds 32 elements of a half row in registers, n/64 threads a
@@ -216,12 +216,12 @@ def _stage(a, s, base, tw, tws, q, inverse):
     w, ws = tw[:, ti], tws[:, ti]
     a = a.clone()
     if inverse:
-        a[..., first] = addmod(u, v, q)
+        a[..., first] = addmod_plain(u, v, q)
         a[..., first + hk] = shoup_mulmod(u + q - v, w, ws, q).long()
     else:
         v = shoup_mulmod(v, w, ws, q).long()
-        a[..., first] = addmod(u, v, q)
-        a[..., first + hk] = submod(u, v, q)
+        a[..., first] = addmod_plain(u, v, q)
+        a[..., first + hk] = submod_plain(u, v, q)
     return a
 
 
@@ -247,7 +247,8 @@ def fwd_phased_plain(x: torch.Tensor, t: NttTables, limbs) -> torch.Tensor:
         u = rows[..., tid + T * k]                         # stage 1
         v = shoup_mulmod(rows[..., H + tid + T * k], w[:, 1, None, None],
                          ws[:, 1, None, None], q).long()
-        a = submod(u, v, q) if c else addmod(u, v, q)      # (R, L, T, 32)
+        a = submod_plain(u, v, q) if c else \
+            addmod_plain(u, v, q)                          # (R, L, T, 32)
         for s in range(S1):
             a = _stage(a, s, 1 << s, sw, sws, q, False)
         buf = lay.buffer(rows)

@@ -724,3 +724,52 @@ def test_card_evaluator(card):
     for got, want in zip(*outs):
         assert torch.equal(got.c0.cpu(), want.c0)
         assert torch.equal(got.c1.cpu(), want.c1)
+
+
+
+@pytest.mark.card
+@pytest.mark.parametrize("op, bad", [("mulmod", "a"), ("mulmod", "b"),
+                                     ("addmod", "a"), ("addmod", "b"),
+                                     ("submod", "a"), ("submod", "b"),
+                                     ("negmod", "a")])
+def test_card_modarith_refuses_int64(card, op, bad):
+    """On the card `ops/modarith.py` sends every tensor to K6, which takes
+    int32 operands only: an int64 residue or operand raises before any
+    launch instead of taking the int64 chain unseen."""
+    from fhe_linformer_tpu_torch.ops import modarith
+    q = torch.tensor([[97], [101]], dtype=torch.int32, device="cuda")
+    x = torch.ones((2, 8), dtype=torch.int32, device="cuda")
+    a, b = (x.long(), x) if bad == "a" else (x, x.long())
+    before = dict(KERNEL_LAUNCHES)
+    with pytest.raises(TypeError, match=f"{bad} must be torch.int32"):
+        if op == "negmod":
+            modarith.negmod(a, q)
+        else:
+            getattr(modarith, op)(a, b, q)
+    assert KERNEL_LAUNCHES == before
+
+
+@pytest.mark.card
+def test_card_plain_references_stay_plain(card):
+    """The plain versions of K5 and K6 on CUDA tensors are plain torch:
+    they launch no K6 and count no K6 call."""
+    from fhe_linformer_tpu_torch.ops import moddown
+    ctx = Context(get("linformer-boot-w").ckks, device="cuda")
+    nl, n = 12, ctx.cfg.n
+    ks, plan = ctx.ks_tables(nl), ctx.rescale_tables(nl)
+    gen = torch.Generator().manual_seed(7)
+    x = _res([ctx.basis[i] for i in ks.tgt_idx], (2, len(ks.tgt_idx), n),
+             gen, "cuda")
+    c = _res(ctx.qs[:nl], (2, nl, n), gen, "cuda")
+    names = ("mod_ew", "rs_lift", "rs_finish")
+    calls = {k: GLOBAL_TIMERS.counts[k] for k in names}
+    before = dict(KERNEL_LAUNCHES)
+    moddown.mod_down_plain(x, ctx.ntt, ks, add=(c[0], None))
+    v = ntt.inv(c[:, nl - 1:], ctx.ntt, (nl - 1,))
+    lift_e = ntt.fwd(modops.rs_lift_plain(v, plan), ctx.ntt,
+                     tuple(range(nl - 1)))
+    modops.rs_finish_plain(c[0], c[1], lift_e, plan, f=c[1])
+    modops.mod_ew_plain("dot", c[0], c[1], ks.q_act, c[1], c[0])
+    torch.cuda.synchronize()
+    assert {k: GLOBAL_TIMERS.counts[k] for k in names} == calls
+    assert all(KERNEL_LAUNCHES[k] == before[k] for k in names)
